@@ -1,11 +1,11 @@
 // popsift_tpu native host runtime.
 //
-// TPU-native counterpart of the reference's host-side machinery
+// Counterpart of the reference's host-side machinery
 // (/root/reference/src/popsift/popsift.cpp:33-213 two-stage thread
 // pipeline over boost::sync_queue; src/application/pgmread.cpp PNM
 // decode; common/plane_2d.{h,cu} pitched/pinned staging planes).
 //
-// On TPU the device-compute half of the reference pipeline is one
+// Here the device-compute half of the reference pipeline is one
 // asynchronously-dispatched XLA program, so what belongs in native code
 // is everything *in front* of the device: file read, PNM decode,
 // RGB->gray conversion, staging-buffer reuse, and the worker-thread job

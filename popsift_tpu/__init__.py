@@ -1,9 +1,9 @@
-"""popsift_tpu — a TPU-native SIFT / SfM framework.
+"""popsift_tpu — a SIFT / SfM framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of PopSift
 (single-GPU CUDA SIFT, reference at /root/reference) extended with
-batched multi-device extraction, descriptor matching on the MXU, and a
-distributed SfM backend.
+batched multi-device extraction, matmul-based descriptor matching, and
+a distributed SfM backend.
 """
 
 from .config import SiftConfig

@@ -34,6 +34,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from popsift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     from popsift_tpu.config import SiftConfig
     from popsift_tpu.runtime.batchjob import BatchExtractJob
 

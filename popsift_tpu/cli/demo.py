@@ -1,8 +1,8 @@
 """popsift-demo equivalent: extract SIFT features from one image.
 
 Flag vocabulary follows the reference CLI
-(/root/reference/src/application/main.cpp:48-149) where meaningful on
-TPU. Output format matches output-features.txt (main.cpp:256-258,
+(/root/reference/src/application/main.cpp:48-149) where meaningful
+here. Output format matches output-features.txt (main.cpp:256-258,
 Feature::print features.cu:308-328).
 """
 
@@ -16,7 +16,7 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="popsift-demo",
-        description="TPU-native SIFT extraction (PopSift-compatible)")
+        description="SIFT extraction (PopSift-compatible)")
     p.add_argument("-i", "--input", required=True, help="input image (PGM/PPM/...)")
     p.add_argument("--octaves", type=int, default=-1, help="number of octaves")
     p.add_argument("--levels", type=int, default=3, help="levels per octave")
@@ -108,6 +108,8 @@ def config_from_args(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from popsift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     from popsift_tpu.api import PopSift
     from popsift_tpu.io.image import load_image
 

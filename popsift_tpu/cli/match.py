@@ -3,7 +3,7 @@ match with the ratio test.
 
 Mirrors /root/reference/src/application/match.cpp:219-274 (extraction in
 MatchingMode, then FeaturesDev::match) with the match kernel replaced by
-the MXU matcher.
+the matmul matcher.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="popsift-match",
-        description="TPU-native SIFT extraction + matching")
+        description="SIFT extraction + matching")
     p.add_argument("-l", "--left", required=True, help="left image")
     p.add_argument("-r", "--right", required=True, help="right image")
     p.add_argument("--octaves", type=int, default=-1)
@@ -52,14 +52,16 @@ def build_parser():
                         "(default 2.0), normalized-coordinate Sampson "
                         "distance for essential (default 0.01)")
     p.add_argument("--int8", action="store_true",
-                   help="int8-quantized matching (native MXU int8 "
-                        "rate, recall >= 0.99 vs exact)")
+                   help="int8-quantized matching (exact int32 "
+                        "distances, recall >= 0.99 vs exact)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from popsift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     from popsift_tpu.api import PopSift
     from popsift_tpu.config import SiftConfig
     from popsift_tpu.io.image import load_image

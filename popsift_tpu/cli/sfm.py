@@ -21,7 +21,7 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="popsift-sfm",
-        description="TPU-native incremental SfM (SIFT + PnP + BA)")
+        description="incremental SfM (SIFT + PnP + BA)")
     p.add_argument("-i", "--images", nargs="+", required=True)
     p.add_argument("--fx", type=float, required=True)
     p.add_argument("--fy", type=float, default=None)
@@ -38,8 +38,8 @@ def build_parser():
                    help="min shared tracks for a view-graph edge "
                         "(--global)")
     p.add_argument("--int8", action="store_true",
-                   help="int8-quantized pairwise matching (native MXU "
-                        "int8 rate, recall >= 0.99 vs exact)")
+                   help="int8-quantized pairwise matching (exact "
+                        "int32 distances, recall >= 0.99 vs exact)")
     p.add_argument("--refine", action="store_true",
                    help="iterative refinement after reconstruction "
                         "(robust BA -> cull gross points -> "
@@ -72,6 +72,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from popsift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from popsift_tpu.api import PopSift

@@ -1,10 +1,10 @@
-"""Runtime configuration for the TPU-native SIFT/SfM framework.
+"""Runtime configuration for the SIFT/SfM framework.
 
 Semantically mirrors the reference runtime parameter surface
 (``popsift::Config``, /root/reference/src/popsift/sift_conf.h:28-310 and
 sift_conf.cu:17-50) while being a frozen dataclass so it can key jit caches.
 
-Differences from the reference (all deliberate, TPU-first):
+Differences from the reference (all deliberate):
 
 * No CUDA device probing in the constructor.
 * ``extrema_capacity`` replaces dynamic ``reallocExtrema``: XLA needs static
@@ -114,7 +114,7 @@ class SiftConfig:
     ori_smoothing: str = "vlfeat"
     verbose: bool = False
 
-    # --- TPU-specific static-shape knobs (no reference equivalent) ---
+    # --- static-shape knobs (no reference equivalent) ---
     # Per-octave initial-extrema capacity. -1: auto-size from octave area.
     extrema_capacity: int = -1
     # Cap for the auto-sizing rule, keeps worst-case padded compute bounded.

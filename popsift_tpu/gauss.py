@@ -15,8 +15,8 @@ Filters are half-sided (center + ``span-1`` taps), normalized so the full
 symmetric kernel sums to 1 (gauss_filter.cu:348-369). Span rules per mode:
 VLFeat ``ceil(4*sigma)+1``, OpenCV ``(round(8*sigma+1)|1)/2+1``, fixed 5/8
 (gauss_filter.cu:301-328). We do not build the hardware-interpolation
-(ratio, weight) variant — TPUs have no texture units; the plain taps feed
-a separable convolution instead.
+(ratio, weight) variant — there are no texture reads here; the plain taps
+feed a separable convolution instead.
 """
 
 from __future__ import annotations

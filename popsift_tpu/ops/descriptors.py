@@ -1,8 +1,8 @@
 """SIFT descriptor extraction in JAX.
 
-TPU-first redesign of the reference descriptor kernels
+Redesign of the reference descriptor kernels
 (/root/reference/src/popsift/s_desc_*.cu). The reference ships five CUDA
-variants; the TPU-shaped formulation is the IGrid/NoTile one
+variants; the static-shape formulation is the IGrid/NoTile one
 (s_desc_igrid.cu:19-108, s_desc_notile.cu): a *fixed* 40x40 rotated
 sampling grid per (keypoint, orientation) — static shapes, no
 data-dependent bounding boxes — with
@@ -12,13 +12,15 @@ data-dependent bounding boxes — with
 * the Gaussian envelope and tile weights from the reference's constant
   tables (desc_gauss/desc_tile, sift_constants.cu:34-47),
 * histogram binning expressed as two small matmuls against static tile
-  weight matrices — the scatter in dpt[fo] += w becomes an einsum that
-  the MXU executes.
+  weight matrices — the scatter in dpt[fo] += w becomes an einsum.
 
 The per-tile "loop" variant (s_desc_loop.cu) scans image pixels in a
-data-dependent bbox; its TPU equivalent is provided as a fixed-window
-masked scan in ``compute_descriptors_loop`` for accuracy cross-checks
-(the reference cross-compares variants the same way, testScripts/TEST.sh).
+data-dependent bbox; :func:`_descriptor_loop_chunk` is its fixed-window
+masked scan in XLA (the plain reference), and ops/pallas/desc.py is the
+GPU kernel with a per-job window.
+
+Every f32 contraction here asks for ``Precision.HIGHEST`` (the policy is
+stated once in ops/matching.py).
 
 Jobs are a flat capacity-padded (keypoint, orientation) list — the
 analog of the reference's feat_to_ext_map indirection
@@ -68,23 +70,19 @@ def make_descriptor_jobs(ext: OctaveExtrema, oris: OctaveOrientations,
 
 
 def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
-                                   ori, ori_valid, segments,
-                                   level_offsets=None):
-    """One batched job build for MANY (octave[, frame]) segments of the
-    pipeline's concatenated keypoint arrays.
+                                   ori, ori_valid, segments):
+    """One batched job build for MANY octave segments of the pipeline's
+    concatenated keypoint arrays.
 
-    Per-octave :func:`make_descriptor_jobs` calls cost one lane sort +
-    ~6 gathers each — x9 octaves (x F frames when batched) they were a
-    leading family in the round-5 small-op trace tail. This builds all
-    segments' front-packed job lists with ONE padded-stack sort and ONE
-    gather per field (the reference's analog is a single global
-    prefix-sum over the flat orientation list, s_orientation.cu:274-299).
+    Per-octave :func:`make_descriptor_jobs` calls cost one sort and ~6
+    gathers each. This builds all segments' front-packed job lists with
+    ONE padded-stack sort and ONE gather per field (the reference's
+    analog is a single global prefix-sum over the flat orientation
+    list, s_orientation.cu:274-299).
 
     ``segments``: static ``((start, K, jcap), ...)`` — each segment
     compacts rows ``[start, start+K)`` of the [N]-shaped keypoint arrays
-    into ``jcap`` padded job rows. ``level_offsets`` optionally adds a
-    static per-segment offset to the gathered level (the batched path's
-    ``frame*L`` layer addressing). Returns ``(jobs, counts)`` where
+    into ``jcap`` padded job rows. Returns ``(jobs, counts)`` where
     ``jobs`` concatenates the segments' padded rows (``kp_index`` LOCAL
     to its segment, ``count`` = total valid) and ``counts`` is i32[S].
     """
@@ -102,7 +100,7 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
     sk = jax.lax.sort(jnp.where(m, iota, jnp.int32(maxflat)), dimension=1)
     ns = jnp.sum(m, axis=1, dtype=jnp.int32)
 
-    kp_loc, kp_glob, slots, valids, lev_off = [], [], [], [], []
+    kp_loc, kp_glob, slots, valids = [], [], [], []
     for i, (s, K, jcap) in enumerate(segments):
         idx = sk[i, :jcap]
         idx = jnp.where(idx >= maxflat, 0, idx)
@@ -112,19 +110,15 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
         slots.append((idx % O).astype(jnp.int32))
         valids.append(jnp.arange(jcap, dtype=jnp.int32)
                       < jnp.minimum(ns[i], jcap))
-        if level_offsets is not None:
-            lev_off.append(np.full(jcap, level_offsets[i], np.int32))
     kpl = jnp.concatenate(kp_loc)
     kpg = jnp.concatenate(kp_glob)
     slot = jnp.concatenate(slots)
     valid = jnp.concatenate(valids)
-    lev = ext_level[kpg]
-    if level_offsets is not None:
-        lev = lev + jnp.asarray(np.concatenate(lev_off))
     counts = jnp.minimum(ns, jnp.asarray([jc for _, _, jc in segments],
                                          jnp.int32))
     jobs = DescriptorJobs(
-        x=ext_x[kpg], y=ext_y[kpg], sigma=ext_sigma[kpg], level=lev,
+        x=ext_x[kpg], y=ext_y[kpg], sigma=ext_sigma[kpg],
+        level=ext_level[kpg],
         ang=ori[kpg, slot], kp_index=kpl, valid=valid,
         count=jnp.sum(counts))
     return jobs, counts
@@ -210,9 +204,10 @@ def _descriptor_grid_chunk(blur: jnp.ndarray, jobs: DescriptorJobs) -> jnp.ndarr
     contrib = (wgt * (1.0 - frac))[..., None] * (fo0[..., None] == bins) \
         + (wgt * frac)[..., None] * (fo1[..., None] == bins)  # [F,40,40,8]
 
-    t1 = jnp.einsum("fyxb,yi->fixb", contrib, Wt,
+    hi = jax.lax.Precision.HIGHEST
+    t1 = jnp.einsum("fyxb,yi->fixb", contrib, Wt, precision=hi,
                     preferred_element_type=jnp.float32)
-    desc = jnp.einsum("fixb,xj->fijb", t1, Wt,
+    desc = jnp.einsum("fixb,xj->fijb", t1, Wt, precision=hi,
                       preferred_element_type=jnp.float32)   # [F, iy, ix, b]
     desc = desc.reshape(F, 128)
     zero = (sbp[:, 0, 0] == 0.0) | ~jobs.valid
@@ -465,6 +460,7 @@ def _descriptor_loop_chunk(img: jnp.ndarray, orig_hw, jobs: DescriptorJobs,
                       + jnp.where(fo1f == b, fracf, 0.0))   # [F, P^2]
         # desc_b[ty, tx] = sum_p wy[p,ty] * cb[p] * wx[p,tx]
         a = jnp.einsum("fpi,fpj->fij", wy * cb[..., None], wx,
+                       precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=jnp.float32)  # [F, 4, 4]
         cols.append(a)
     desc = jnp.stack(cols, axis=-1)                 # [F, ty, tx, 8]
@@ -473,98 +469,45 @@ def _descriptor_loop_chunk(img: jnp.ndarray, orig_hw, jobs: DescriptorJobs,
     return jnp.where(zero[:, None], 0.0, desc)
 
 
-def compute_descriptors(blur: jnp.ndarray | None, jobs: DescriptorJobs,
-                        cfg: SiftConfig, chunk: int = 1024,
-                        use_pallas: bool | None = None,
-                        y_bounds=None, padded=None,
-                        dims: tuple | None = None,
-                        seg=None) -> jnp.ndarray:
-    """Unnormalized descriptors f32[F, 128].
+def _loop_descriptors(blur: jnp.ndarray, jobs: DescriptorJobs,
+                      cfg: SiftConfig, chunk: int, y_bounds,
+                      impl: str | None) -> jnp.ndarray:
+    """The one place that picks how the loop variant runs.
 
-    Variant dispatch (DescMode, sift_conf.h:59-65), each name mapping to
-    its reference-distinct semantics:
-
-    * ``loop``  — dense integer-pixel scan (s_desc_loop.cu), Pallas
-      kernel on TPU (the XLA formulation moves ~18 GB of intermediates
-      per 1080p frame; elsewhere evaluation is chunked over jobs);
-    * ``iloop`` — per-tile bbox scan with rotated-offset bilinear
-      gradients (s_desc_iloop.cu);
-    * ``grid``  — per-tile 16x16 rotated grid at *rounded* pixel
-      addresses (s_desc_grid.cu);
-    * ``igrid``/``notile`` — fixed 40x40 rotated grid with bilinear
-      rotated gradients; notile is igrid with the redundant fetches
-      deduplicated — identical sample positions, tables and math
-      (s_desc_igrid.cu:19-108 vs s_desc_notile.cu:31-95), hence one
-      implementation here.
+    ``impl=None``: the Triton kernel (ops/pallas/desc.py) where the
+    program is lowered for a CUDA GPU, the plain XLA reference
+    (:func:`_descriptor_loop_chunk`) everywhere else. The choice is made
+    per platform at lowering time, so one jitted function gives the
+    kernel on the card and the reference on the host CPU. ``"kernel"``
+    or ``"xla"`` forces one (A/B runs, interpret-mode tests). A kernel
+    that fails to compile fails the run; nothing falls back.
     """
-    if cfg.desc_mode == "iloop":
-        def body_fn(j):
-            return _descriptor_iloop_chunk(blur, j)
-        chunk = min(chunk, 64)    # 16 tiles x 32x32 samples per job
-    elif cfg.desc_mode == "grid":
-        def body_fn(j):
-            return _descriptor_tilegrid_chunk(blur, j)
-        chunk = min(chunk, 128)   # 16 tiles x 16x16 samples per job
-    elif cfg.desc_mode == "loop":
-        from .pallas.desc import desc_pallas_available, descriptor_loop_pallas
+    from .pallas.desc import descriptor_loop_triton
 
-        radius = loop_patch_radius(cfg)
-        hw = dims if blur is None else blur.shape[-2:]
+    radius = loop_patch_radius(cfg)
 
-        if use_pallas is None:
-            use_pallas = desc_pallas_available() and y_bounds is None
-        if use_pallas and radius <= 51:
-            from .pallas.desc import (descriptor_loop_pallas_bucketed,
-                                      descriptor_loop_pallas_dma)
+    def kernel():
+        return descriptor_loop_triton(blur, jobs, radius,
+                                      y_bounds=y_bounds)
 
-            # padded so every aligned DMA window fits; extra rows/cols
-            # lie beyond the descriptor support (L2 norm > 2.5*sqrt(2))
-            # and get zero tile weight. The padded buffer is shared
-            # with the orientation kernel when the pipeline provides it
-            # (pad_for_window_kernels).
-            H, W = hw
-            if padded is None:
-                from .orientation import pad_for_window_kernels
-                padded = pad_for_window_kernels(blur, H, W)
-            # sigma bucketing: low-level keypoints (the bulk) take
-            # small-window kernel instances. Split candidates at the
-            # per-level sigma bounds (sn < l + 0.5); keep a split only
-            # when its static patch rows P drop by >= 16 vs the next
-            # bucket (P granularity is 8 sublanes).
-            from .pallas.desc import descriptor_loop_pallas_multibucket
-
-            def rows_for(r):
-                return min(-(-(2 * r + 2) // 8) * 8, 104)
-
-            cand = []
-            for lvl_hi in (1, 2):
-                s_hi = cfg.sigma * 2.0 ** ((lvl_hi + 0.5) / cfg.levels)
-                r = int(math.ceil(2.5 * math.sqrt(2.0)
-                                  * DESC_MAGNIFY * s_hi)) + 2
-                cand.append((s_hi, r))
-            buckets = [(None, radius)]
-            for s_hi, r in reversed(cand):
-                if rows_for(r) + 16 <= rows_for(buckets[0][1]):
-                    buckets.insert(0, (s_hi, r))
-            # small octaves: the split's fixed cost (per-bucket sort +
-            # regather + an extra kernel launch) exceeds the VPU win —
-            # round-5 glue audit; only job lists >= 1024 rows bucket
-            if len(buckets) > 1 and jobs.x.shape[0] >= 1024:
-                return descriptor_loop_pallas_multibucket(
-                    padded, jobs, buckets, H, W, seg=seg)
-            return descriptor_loop_pallas_dma(padded, jobs, radius, H, W,
-                                              seg=seg)
-
+    def xla():
         img = pad_for_patches(blur, 2 * radius + 1)
+        return _chunked(
+            lambda j: _descriptor_loop_chunk(img, blur.shape[-2:], j,
+                                             radius, y_bounds=y_bounds),
+            jobs, min(chunk, 256))  # loop patches are ~P^2 * 6 floats each
 
-        def body_fn(j):
-            return _descriptor_loop_chunk(img, hw, j, radius,
-                                          y_bounds=y_bounds)
-        chunk = min(chunk, 256)   # loop patches are ~P^2 * 6 floats each
-    else:
-        def body_fn(j):
-            return _descriptor_grid_chunk(blur, j)
+    if impl == "kernel":
+        return kernel()
+    if impl == "xla":
+        return xla()
+    if impl is not None:
+        raise ValueError(f"impl must be None, 'kernel' or 'xla': {impl!r}")
+    return jax.lax.platform_dependent(cuda=kernel, default=xla)
 
+
+def _chunked(body_fn, jobs: DescriptorJobs, chunk: int) -> jnp.ndarray:
+    """Evaluate ``body_fn`` over the job list in chunks under lax.map."""
     F = jobs.x.shape[0]
     if F <= chunk:
         return body_fn(jobs)
@@ -587,6 +530,44 @@ def compute_descriptors(blur: jnp.ndarray | None, jobs: DescriptorJobs,
 
     out = jax.lax.map(body, fields)
     return out.reshape(nchunk * chunk, 128)[:F]
+
+
+def compute_descriptors(blur: jnp.ndarray, jobs: DescriptorJobs,
+                        cfg: SiftConfig, chunk: int = 1024,
+                        y_bounds=None,
+                        impl: str | None = None) -> jnp.ndarray:
+    """Unnormalized descriptors f32[F, 128].
+
+    Variant dispatch (DescMode, sift_conf.h:59-65), each name mapping to
+    its reference-distinct semantics:
+
+    * ``loop``  — dense integer-pixel scan (s_desc_loop.cu): the Triton
+      kernel on a GPU, the XLA reference elsewhere
+      (:func:`_loop_descriptors`, which ``impl`` is passed to);
+    * ``iloop`` — per-tile bbox scan with rotated-offset bilinear
+      gradients (s_desc_iloop.cu);
+    * ``grid``  — per-tile 16x16 rotated grid at *rounded* pixel
+      addresses (s_desc_grid.cu);
+    * ``igrid``/``notile`` — fixed 40x40 rotated grid with bilinear
+      rotated gradients; notile is igrid with the redundant fetches
+      deduplicated — identical sample positions, tables and math
+      (s_desc_igrid.cu:19-108 vs s_desc_notile.cu:31-95), hence one
+      implementation here.
+
+    ``y_bounds=(lo, hi)`` (loop variant only): inclusive valid row range
+    of a sharded row band, in local coordinates.
+    """
+    if cfg.desc_mode == "loop":
+        return _loop_descriptors(blur, jobs, cfg, chunk, y_bounds, impl)
+    if cfg.desc_mode == "iloop":
+        # 16 tiles x 32x32 samples per job
+        return _chunked(lambda j: _descriptor_iloop_chunk(blur, j), jobs,
+                        min(chunk, 64))
+    if cfg.desc_mode == "grid":
+        # 16 tiles x 16x16 samples per job
+        return _chunked(lambda j: _descriptor_tilegrid_chunk(blur, j),
+                        jobs, min(chunk, 128))
+    return _chunked(lambda j: _descriptor_grid_chunk(blur, j), jobs, chunk)
 
 
 def normalize_descriptors(desc: jnp.ndarray, cfg: SiftConfig) -> jnp.ndarray:

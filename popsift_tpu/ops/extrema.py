@@ -1,6 +1,6 @@
 """DoG extrema detection and sub-pixel refinement in JAX.
 
-TPU-first redesign of the reference extrema kernel
+Redesign of the reference extrema kernel
 (/root/reference/src/popsift/s_extrema.cu):
 
 * warp-ballot + atomicAdd compaction (s_extrema.cu:22-44) becomes a dense
@@ -9,9 +9,8 @@ TPU-first redesign of the reference extrema kernel
   clamps to ``max_extrema`` (s_extrema.cu:551-561), we make the bound a
   static shape.
 * the early-exit grouped 26-neighbor test (s_extrema.cu:56-120) becomes
-  a fully dense vectorized strict min/max over shifted slices — on the
-  VPU evaluating all 26 comparisons everywhere is cheaper than
-  divergence would be.
+  a fully dense vectorized strict min/max over shifted slices that XLA
+  fuses into one elementwise loop.
 * the per-thread refinement loop (s_extrema.cu:359-460) is a 5x unrolled
   masked update over the compacted candidate set, with clamped gathers
   standing in for texture reads.
@@ -71,58 +70,29 @@ def _first_threshold(cfg: SiftConfig) -> float:
     return float(np.floor(thr))
 
 
-def _candidate_mask(dog: jnp.ndarray, cfg: SiftConfig,
-                    use_pallas: bool | None = None,
-                    canvas: jnp.ndarray | None = None,
-                    dims: tuple | None = None,
-                    interpret: bool = False) -> jnp.ndarray:
+def _candidate_mask(dog: jnp.ndarray, cfg: SiftConfig) -> jnp.ndarray:
     """Dense mask of pixels passing contrast + strict 26-neighbor test.
 
     Layers z = 1 .. total_levels-3 are searched (grid.z = levels-3 with
     level = block_z + 1, s_extrema.cu:329-334). Edge-replication padding
     reproduces the clamped-texture behavior that silently excludes the
-    outermost pixels (val > val is false). On TPU the stencil runs as a
-    Pallas kernel (one VMEM pass instead of 26 HBM read streams); when
-    the pipeline provides the shared halo-padded DoG ``canvas``
-    (pyramid.assemble_dog_canvas, ``dims=(H, W)``), the kernel reads it
-    directly and no per-consumer edge-pad copy exists at all.
+    outermost pixels (val > val is false). The 26 shifted compares fuse
+    into one elementwise loop.
     """
-    from .pallas.extrema_mask import (candidate_mask_canvas_pallas,
-                                      candidate_mask_pallas,
-                                      mask_pallas_available)
-
-    Z = cfg.total_levels - 3
-    if canvas is not None:
-        H, W = dims
-        mask = candidate_mask_canvas_pallas(
-            canvas[:Z + 2], H, W, float(_first_threshold(cfg)),
-            interpret=bool(interpret))
-        if cfg.sift_mode == "opencv":
-            ys = jnp.arange(H)
-            xs = jnp.arange(W)
-            border = ((xs < 5) | (xs >= W - 5))[None, None, :] | \
-                     ((ys < 5) | (ys >= H - 5))[None, :, None]
-            mask = mask & ~border
-        return mask
     D, H, W = dog.shape
+    Z = cfg.total_levels - 3
     thr1 = np.float32(_first_threshold(cfg))
-
-    if use_pallas is None:
-        use_pallas = mask_pallas_available()
-    if use_pallas:
-        mask = candidate_mask_pallas(dog[:Z + 2], float(thr1))
-    else:
-        c = dog[1:Z + 1]
-        first = jnp.abs(c) >= thr1
-        dogp = jnp.pad(dog, ((1, 1), (1, 1), (1, 1)), mode="edge")
-        gt = jnp.ones_like(c, dtype=bool)
-        lt = jnp.ones_like(c, dtype=bool)
-        for dz, dy, dx in _neighbor_offsets():
-            nb = jax.lax.dynamic_slice(
-                dogp, (1 + 1 + dz, 1 + dy, 1 + dx), (Z, H, W))
-            gt = gt & (c > nb)
-            lt = lt & (c < nb)
-        mask = first & (gt | lt)
+    c = dog[1:Z + 1]
+    first = jnp.abs(c) >= thr1
+    dogp = jnp.pad(dog, ((1, 1), (1, 1), (1, 1)), mode="edge")
+    gt = jnp.ones_like(c, dtype=bool)
+    lt = jnp.ones_like(c, dtype=bool)
+    for dz, dy, dx in _neighbor_offsets():
+        nb = jax.lax.dynamic_slice(
+            dogp, (1 + 1 + dz, 1 + dy, 1 + dx), (Z, H, W))
+        gt = gt & (c > nb)
+        lt = lt & (c < nb)
+    mask = first & (gt | lt)
 
     if cfg.sift_mode == "opencv":
         # OpenCV rejects a 5-pixel border outright (s_extrema.cu:336-340)
@@ -160,9 +130,8 @@ def first_set_indices(mask: jnp.ndarray, size: int,
                       fill: int = 0) -> jnp.ndarray:
     """Ascending indices of the first ``size`` set bits of a 1-D bool
     mask — ``jnp.nonzero(mask, size=size, fill_value=fill)`` semantics
-    as ONE ``lax.sort``. nonzero's cumsum+bincount lowering emits a
-    scatter (serialized on TPU) per call; the job-list builders call
-    this once per octave per frame.
+    as ONE ``lax.sort`` (nonzero's cumsum+bincount lowering emits a
+    scatter per call; ROADMAP queue 1 item 6 A/Bs the two on the GPU).
     """
     n = mask.shape[0]
     keys = jnp.where(mask, jax.lax.iota(jnp.int32, n), jnp.int32(n))
@@ -177,10 +146,7 @@ def _rank_compact_rows(m: jnp.ndarray, K: int):
     One per-row ascending ``lax.sort`` of (set ? lane : B) puts the set
     lanes' positions first — the moral equivalent of the reference's
     warp-ballot compaction (s_extrema.cu:22-44) as a single fused HLO.
-    (The previous formulation — a lane prefix-sum plus K per-rank
-    masked reductions — emitted K+7 separate ops per call and was the
-    largest family in the round-4 small-op trace tail.) Ranks past the
-    row's count report position 0, matching the old contract.
+    Ranks past the row's count report position 0.
     """
     nb, B = m.shape
     iota = jax.lax.broadcasted_iota(jnp.int32, (nb, B), 1)
@@ -195,11 +161,9 @@ def _rank_compact_rows(m: jnp.ndarray, K: int):
 def _compact_mask(flat: jnp.ndarray, capacity: int, block_k: int = 0):
     """Compact a sparse boolean mask into up to ``capacity`` flat indices,
     preserving ascending index order — ``jnp.nonzero`` semantics with a
-    per-128-lane-block density clamp (below), ~100x faster on TPU.
-
-    A single ``jnp.nonzero`` over a full-octave mask lowers to a global
-    cumsum+gather costing ~220 ms on a 24.9M mask (v5e); batched
-    ``lax.top_k`` ~13 ms. This scheme is two-level:
+    per-128-lane-block density clamp (below). A single ``jnp.nonzero``
+    over a full-octave mask lowers to a global cumsum+gather; this
+    scheme is two-level:
 
     1. ONE cheap dense pass computes per-128-lane-block counts (the
        only full-mask traffic: a bool read + i32 row reduce);
@@ -207,9 +171,8 @@ def _compact_mask(flat: jnp.ndarray, capacity: int, block_k: int = 0):
        compacted recursively (the level-2 mask is nb bits — trivial);
     3. only those blocks' mask rows are gathered, and the rank phase
        (:func:`_rank_compact_rows`: one per-row lane sort) runs on the
-       [<=capacity, 128] gathered rows instead of the full mask — on a
-       24.9M 1080p mask that replaced ~1.4 ms/frame of dense int8
-       passes with work proportional to the candidate count;
+       [<=capacity, 128] gathered rows instead of the full mask, so
+       the work is proportional to the candidate count;
     4. block write offsets come from one small cumsum over block
        counts, and the output is *gathered* (searchsorted over
        offsets) rather than scattered, so no second nonzero is needed.
@@ -271,9 +234,7 @@ def _compact_mask(flat: jnp.ndarray, capacity: int, block_k: int = 0):
     s = jnp.arange(capacity, dtype=jnp.int32)
     # block lookup b[s] = searchsorted(off, s, "right") - 1 as a dense
     # compare-sum: jnp.searchsorted lowers to a log2(n)-iteration while
-    # loop whose per-iteration dispatch cost (~0.3 ms/frame across the
-    # octaves at 1080p, round-5 trace) dwarfs this one fused
-    # [capacity, nsel] reduction.
+    # loop, this to one fused [capacity, nsel] reduction.
     b = jnp.clip(jnp.sum((off[None, :] <= s[:, None]), axis=1,
                          dtype=jnp.int32) - 1, 0, nsel - 1)
     j = jnp.clip(s - off[b], 0, K - 1)
@@ -295,55 +256,16 @@ class CandidateSet(NamedTuple):
     n_dropped: jnp.ndarray  # i32[]
 
 
-def collect_candidates(dog: jnp.ndarray | None, cfg: SiftConfig,
-                       capacity: int, row_window: tuple | None = None,
-                       canvas: jnp.ndarray | None = None,
-                       dims: tuple | None = None,
-                       interpret: bool = False) -> CandidateSet:
+def collect_candidates(dog: jnp.ndarray, cfg: SiftConfig,
+                       capacity: int,
+                       row_window: tuple | None = None) -> CandidateSet:
     """Mask + compact + window-extract for one octave's DoG stack.
 
     This is the only part of detection whose array shapes depend on the
     octave; the refinement math (:func:`refine_candidates`) runs on the
-    capacity-padded candidate list and batches across octaves — on TPU
-    the per-octave unrolled refinement was pure op-dispatch overhead
-    (~hundreds of small fused ops per frame), so the pipeline
-    concatenates all octaves' CandidateSets and refines once.
-
-    ``canvas`` (+ ``dims=(H, W)``): the shared halo-padded DoG canvas
-    (pyramid.assemble_dog_canvas). Both the mask stencil and the
-    refinement window extractor then read the canvas in place —
-    detection does zero padding copies. The zero (non-edge-replicated)
-    halo is safe: the refinement's one-hot neighborhood reads only
-    pixels in [0, H-1]x[0, W-1] (the step policy clamps moves to
-    [1, H-2], s_extrema.cu:258-284, and candidates start off-border).
+    capacity-padded candidate list and batches across octaves, so the
+    pipeline concatenates all octaves' CandidateSets and refines once.
     """
-    if canvas is not None:
-        from .pyramid import DOG_OY, DOG_OX
-        H, W = dims
-        D = canvas.shape[0]
-        mask = _candidate_mask(None, cfg, canvas=canvas, dims=dims,
-                               interpret=interpret)
-        if row_window is not None:
-            lo, hi = row_window
-            rows = jnp.arange(H, dtype=jnp.int32)
-            mask = mask & ((rows >= lo) & (rows < hi))[None, :, None]
-        idx, n_found, n_dropped = _compact_mask(
-            mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
-        cand_valid = jnp.arange(capacity, dtype=jnp.int32) < n_found
-        z0 = (idx // (H * W)).astype(jnp.int32) + 1
-        rem = idx % (H * W)
-        y0 = (rem // W).astype(jnp.int32)
-        x0 = (rem % W).astype(jnp.int32)
-        R = MAX_ITERATIONS
-        P = 2 * R + 1
-        from .pallas.window import extract_windows_pallas
-        patches, _, _ = extract_windows_pallas(
-            canvas, y0 + DOG_OY, x0 + DOG_OX, R, P, P, n_valid=n_found,
-            interpret=interpret)
-        return CandidateSet(patches=patches, x0=x0, y0=y0, z0=z0,
-                            valid=cand_valid, n_found=n_found,
-                            n_dropped=n_dropped)
-
     D, H, W = dog.shape
     mask = _candidate_mask(dog, cfg)
     if row_window is not None:
@@ -363,180 +285,20 @@ def collect_candidates(dog: jnp.ndarray | None, cfg: SiftConfig,
     # positions move at most MAX_ITERATIONS-1 cells from the start and
     # derivatives need a +-1 halo, so an 11x11 window (all D layers)
     # covers every read of the refinement loop. One batched
-    # dynamic_slice pulls the patches (coarse-grained, bandwidth-bound);
-    # the 27-point neighborhood of the *current* position is then read
-    # with three tiny separable one-hot contractions on the VPU —
-    # scalar gathers from HBM cost ~80 cycles each, this is ~3 ops per
-    # patch element.
+    # dynamic_slice pulls the patches; the 27-point neighborhood of the
+    # *current* position is then read with three tiny separable one-hot
+    # contractions.
     R = MAX_ITERATIONS                      # 4 moves + 1 derivative halo
     P = 2 * R + 1
-    from .pallas.window import extract_windows_pallas, window_pallas_available
-    if window_pallas_available():
-        # aligned-window DMA extractor: the XLA gather of [D, 11, 11]
-        # blocks moves 44-byte rows at ~1.5 GB/s (~5 ms per octave)
-        Wpad = -(-(W + R + 256) // 128) * 128
-        dogp = jnp.pad(dog, ((0, 0), (R, R + 16), (R, Wpad - W - R)),
-                       mode="edge")
-        patches, _, _ = extract_windows_pallas(
-            dogp, y0 + R, x0 + R, R, P, P, n_valid=n_found)
-    else:
-        dogp = jnp.pad(dog, ((0, 0), (R, R), (R, R)), mode="edge")
+    dogp = jnp.pad(dog, ((0, 0), (R, R), (R, R)), mode="edge")
 
-        def one_patch(y, x):
-            return jax.lax.dynamic_slice(dogp, (0, y, x), (D, P, P))
+    def one_patch(y, x):
+        return jax.lax.dynamic_slice(dogp, (0, y, x), (D, P, P))
 
-        patches = jax.vmap(one_patch)(y0, x0)  # [K, D, P, P]
+    patches = jax.vmap(one_patch)(y0, x0)  # [K, D, P, P]
     return CandidateSet(patches=patches, x0=x0, y0=y0, z0=z0,
                         valid=cand_valid, n_found=n_found,
                         n_dropped=n_dropped)
-
-
-def collect_candidates_batched(canvas: jnp.ndarray, F: int,
-                               cfg: SiftConfig, capacity: int,
-                               dims: tuple,
-                               interpret: bool = False) -> CandidateSet:
-    """Frame-batched canvas collection: one mask-kernel launch and one
-    window-DMA launch for F frames' DoG canvases (stacked on the layer
-    axis, f32[F*(L-1), Hd, Wd]).
-
-    Returns a CandidateSet whose row arrays are [F, capacity] and whose
-    counts are per-frame i32[F]; patches are [F*capacity, D, P, P] in
-    frame-major order. Per-128-job-block activity masks preserve the
-    skip-empty-blocks DMA optimization across the concatenated
-    per-frame segments.
-    """
-    from .pallas.extrema_mask import candidate_mask_canvas_batched
-    from .pallas.window import _G, extract_windows_pallas_batched
-    from .pyramid import DOG_OX, DOG_OY
-
-    H, W = dims
-    D = canvas.shape[0] // F
-    thr1 = np.float32(_first_threshold(cfg))
-    mask = candidate_mask_canvas_batched(canvas, F, H, W, float(thr1),
-                                         interpret=interpret)
-    if cfg.sift_mode == "opencv":
-        ys = jnp.arange(H)
-        xs = jnp.arange(W)
-        border = ((xs < 5) | (xs >= W - 5))[None, None, :] | \
-                 ((ys < 5) | (ys >= H - 5))[None, :, None]
-        mask = mask & ~border[None]
-
-    idx, n_found, n_dropped = jax.vmap(
-        lambda m: _compact_mask(m, capacity,
-                                block_k=cfg.compact_block_k))(
-        mask.reshape(F, -1))                      # [F, cap], [F], [F]
-    cand_valid = (jnp.arange(capacity, dtype=jnp.int32)[None, :]
-                  < n_found[:, None])
-    z0 = (idx // (H * W)).astype(jnp.int32) + 1
-    rem = idx % (H * W)
-    y0 = (rem // W).astype(jnp.int32)
-    x0 = (rem % W).astype(jnp.int32)
-
-    R = MAX_ITERATIONS
-    P = 2 * R + 1
-    zb = jnp.broadcast_to(
-        (jnp.arange(F, dtype=jnp.int32) * D)[:, None], (F, capacity))
-    nblk = capacity // _G
-    ba = (jnp.arange(nblk, dtype=jnp.int32)[None, :] * _G
-          < n_found[:, None]).reshape(-1)
-    patches = extract_windows_pallas_batched(
-        canvas, zb.reshape(-1), (y0 + DOG_OY).reshape(-1),
-        (x0 + DOG_OX).reshape(-1), R, P, P, D, block_valid=ba,
-        interpret=interpret)
-    return CandidateSet(patches=patches, x0=x0, y0=y0, z0=z0,
-                        valid=cand_valid, n_found=n_found,
-                        n_dropped=n_dropped)
-
-
-class RefinedSet(NamedTuple):
-    """Per-octave output of the fused collect+refine kernel path
-    (:func:`collect_refined`): 13 refinement scalars per candidate
-    instead of a [K, D, 11, 11] patch — the accept tests run batched
-    across octaves in :func:`finalize_refined`."""
-
-    vals: jnp.ndarray      # f32[K, 16] (nx, ny, nz, dx, dy, dz, v,
-    #                        Dx, Dy, Ds, DDx, DDy, DXy, 0, 0, 0)
-    valid: jnp.ndarray     # bool[K] (or [F, K] batched)
-    n_found: jnp.ndarray   # i32[] (or i32[F])
-    n_dropped: jnp.ndarray
-
-
-def collect_refined(cfg: SiftConfig, capacity: int, canvas: jnp.ndarray,
-                    dims: tuple, interpret: bool = False) -> RefinedSet:
-    """Mask + compact + fused in-kernel refinement for one octave's DoG
-    canvas (the TPU production path; reference refines in registers the
-    same way, one thread per extremum, s_extrema.cu:359-460).
-
-    Replaces collect_candidates + the XLA refine loop: the window-DMA
-    kernel no longer writes lane-padded patches to HBM (39 MB at the
-    densest 1080p octave) and the ~400-op one-hot refinement tail
-    collapses into the kernel (round-4 trace: the largest slice of the
-    op-overhead tail)."""
-    from .pallas.refine import refine_windows_pallas
-    from .pyramid import DOG_OX, DOG_OY
-
-    H, W = dims
-    mask = _candidate_mask(None, cfg, canvas=canvas, dims=dims,
-                           interpret=interpret)
-    idx, n_found, n_dropped = _compact_mask(
-        mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
-    cand_valid = jnp.arange(capacity, dtype=jnp.int32) < n_found
-    z0 = (idx // (H * W)).astype(jnp.int32) + 1
-    rem = idx % (H * W)
-    y0 = (rem // W).astype(jnp.int32)
-    x0 = (rem % W).astype(jnp.int32)
-    vals = refine_windows_pallas(
-        canvas, y0, x0, z0, n_found, oy=DOG_OY, ox=DOG_OX, W=W, H=H,
-        maxlevel=cfg.total_levels - 1,
-        vlfeat=cfg.sift_mode == "vlfeat", interpret=interpret)
-    return RefinedSet(vals=vals, valid=cand_valid, n_found=n_found,
-                      n_dropped=n_dropped)
-
-
-def collect_refined_batched(canvas: jnp.ndarray, F: int, cfg: SiftConfig,
-                            capacity: int, dims: tuple,
-                            interpret: bool = False) -> RefinedSet:
-    """Frame-batched :func:`collect_refined`: vals are [F*capacity, 16]
-    frame-major, counts per-frame (mirrors collect_candidates_batched's
-    layout contract)."""
-    from .pallas.extrema_mask import candidate_mask_canvas_batched
-    from .pallas.refine import _G, refine_windows_pallas_batched
-    from .pyramid import DOG_OX, DOG_OY
-
-    H, W = dims
-    D = canvas.shape[0] // F
-    thr1 = np.float32(_first_threshold(cfg))
-    mask = candidate_mask_canvas_batched(canvas, F, H, W, float(thr1),
-                                         interpret=interpret)
-    if cfg.sift_mode == "opencv":
-        ys = jnp.arange(H)
-        xs = jnp.arange(W)
-        border = ((xs < 5) | (xs >= W - 5))[None, None, :] | \
-                 ((ys < 5) | (ys >= H - 5))[None, :, None]
-        mask = mask & ~border[None]
-
-    idx, n_found, n_dropped = jax.vmap(
-        lambda m: _compact_mask(m, capacity,
-                                block_k=cfg.compact_block_k))(
-        mask.reshape(F, -1))
-    cand_valid = (jnp.arange(capacity, dtype=jnp.int32)[None, :]
-                  < n_found[:, None])
-    z0 = (idx // (H * W)).astype(jnp.int32) + 1
-    rem = idx % (H * W)
-    y0 = (rem // W).astype(jnp.int32)
-    x0 = (rem % W).astype(jnp.int32)
-    zb = jnp.broadcast_to(
-        (jnp.arange(F, dtype=jnp.int32) * D)[:, None], (F, capacity))
-    nblk = capacity // _G
-    ba = (jnp.arange(nblk, dtype=jnp.int32)[None, :] * _G
-          < n_found[:, None]).reshape(-1)
-    vals = refine_windows_pallas_batched(
-        canvas, zb.reshape(-1), y0.reshape(-1), x0.reshape(-1),
-        z0.reshape(-1), ba, oy=DOG_OY, ox=DOG_OX, D=D, W=W, H=H,
-        maxlevel=cfg.total_levels - 1,
-        vlfeat=cfg.sift_mode == "vlfeat", interpret=interpret)
-    return RefinedSet(vals=vals, valid=cand_valid, n_found=n_found,
-                      n_dropped=n_dropped)
 
 
 def finalize_refined(state: jnp.ndarray, cand_valid: jnp.ndarray,
@@ -546,10 +308,8 @@ def finalize_refined(state: jnp.ndarray, cand_valid: jnp.ndarray,
     reference refinement, s_extrema.cu:455-493): excessive-movement,
     bounds, contrast, curvature-sign and edge-ratio tests, plus sigma
     and grid-cell assignment.  ``state`` columns are
-    (nx, ny, nz, dx, dy, dz, v, Dx, Dy, Ds, DDx, DDy, DXy) — produced
-    either by the XLA loop in :func:`refine_candidates` or by the fused
-    Pallas kernel (ops/pallas/refine.py); both paths share this code so
-    the accept semantics cannot drift apart."""
+    (nx, ny, nz, dx, dy, dz, v, Dx, Dy, Ds, DDx, DDy, DXy) as produced
+    by the loop in :func:`refine_candidates`."""
     (nx, nyv, nzv, dx, dy, dz, v,
      Dx, Dy, Ds, DDx, DDy, DXy) = (state[:, i] for i in range(13))
     Wb = jnp.asarray(oct_w, jnp.int32)
@@ -636,11 +396,10 @@ def refine_candidates(cand: CandidateSet, cfg: SiftConfig,
                ).astype(jnp.float32)                             # [K, 3, P]
         oxh = (xi[:, :, None] == jnp.arange(P, dtype=jnp.int32)
                ).astype(jnp.float32)
-        # explicit multiply+reduce (NOT einsum/dot): routing these tiny
-        # contractions to the MXU makes XLA re-materialize the whole DoG
-        # stack as bf16 in an einsum-friendly batch-minor layout — a
-        # 128x padding explosion (~8 GB/frame, measured) — and costs
-        # refine precision. The VPU form stays f32 and fuses.
+        # explicit multiply+reduce (NOT einsum/dot): a default-precision
+        # dot may round its operands and costs refine precision; a dot
+        # may also make XLA re-lay-out the whole patch stack. This form
+        # stays f32 and fuses.
         t = jnp.sum(oz[:, :, :, None]
                     * patches.reshape(K, 1, D, P * P), axis=2)   # [K,3,P*P]
         t = t.reshape(K, 3, P, P)
@@ -721,7 +480,7 @@ def refine_candidates(cand: CandidateSet, cfg: SiftConfig,
         else:
             done = done | act
 
-    # final accept tests shared with the fused-kernel path
+    # final accept tests
     state = jnp.stack([
         nx.astype(jnp.float32), ny.astype(jnp.float32),
         nz.astype(jnp.float32), dx, dy, dz, v,

@@ -1,6 +1,6 @@
 """Grid-based extrema budget filter.
 
-TPU-first redesign of the reference's Thrust filtering pipeline
+Redesign of the reference's Thrust filtering pipeline
 (/root/reference/src/popsift/s_filtergrid.cu:109-322): when the number of
 initial extrema exceeds ``filter_max_extrema`` by more than 10%
 (s_orientation.cu:362-367), the image is split into
@@ -68,7 +68,7 @@ def grid_filter_mask(cell: jnp.ndarray, sigma: jnp.ndarray,
     n = cell.shape[0]
     n_cells = cfg.filter_grid_size * cfg.filter_grid_size
     # per-cell histogram via a tiny one-hot contraction (n_cells is
-    # small; a scatter-add would serialize on TPU)
+    # small)
     onehot = cell[:, None] == jnp.arange(n_cells, dtype=cell.dtype)[None, :]
     counts = jnp.sum(jnp.where(valid[:, None] & onehot, 1, 0), axis=0)
     limit = _redistributed_limit(counts, cfg.filter_max_extrema)

@@ -1,6 +1,6 @@
-"""Brute-force descriptor matching on the MXU.
+"""Brute-force descriptor matching as matmuls.
 
-TPU-first redesign of the reference matcher (FeaturesDev::match,
+Redesign of the reference matcher (FeaturesDev::match,
 /root/reference/src/popsift/features.cu:163-302): the CUDA version runs
 one block per left descriptor looping over all right descriptors with
 warp-shuffle L2 reductions — an O(L*R*128) scalar loop. Here the whole
@@ -9,9 +9,17 @@ distance field is a single f32 matmul,
     d2[i, j] = |l_i|^2 + |r_j|^2 - 2 l_i . r_j
 
 tiled over the right set so the working set stays bounded, with a
-running (best, second-best) reduction — the math the MXU was built for.
-Acceptance is Lowe's ratio test on squared L2 at 0.8
-(features.cu:223).
+running (best, second-best) reduction. Acceptance is Lowe's ratio test
+on squared L2 at 0.8 (features.cu:223).
+
+Precision policy (the one statement of it for the repo): a float32
+contraction whose result is kept — a distance, a descriptor bin, a BA
+normal equation — asks for ``Precision.HIGHEST``, because on a GPU the
+default may run in TF32 (~3 decimal digits). Only a contraction whose
+result merely shortlists candidates for an exact pass keeps the default
+(the sketch prefilter in :func:`match_descriptors_pruned`). Integer
+dots are exact at any setting. The global ``jax_default_matmul_precision``
+is left alone.
 """
 
 from __future__ import annotations
@@ -75,8 +83,7 @@ def match_descriptors(desc_l: jnp.ndarray, valid_l: jnp.ndarray,
         d2 = jnp.where(vtile[None, :], d2, jnp.inf)
 
         # best + second within the tile (mask the argmin column with a
-        # compare instead of a scatter — .at[].set lowers to a scatter
-        # that dominates the whole matmul on TPU)
+        # compare instead of an .at[].set scatter)
         t_best = jnp.min(d2, axis=1)
         t_bidx = jnp.argmin(d2, axis=1).astype(jnp.int32)
         cols = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
@@ -127,9 +134,9 @@ def match_descriptors_q8(desc_l: jnp.ndarray, valid_l: jnp.ndarray,
 
     Descriptors are scaled to [0, 127] and rounded; squared distances
     are computed EXACTLY in int32 arithmetic (|a|^2 + |b|^2 - 2ab with
-    an int8 x int8 -> int32 ``dot_general`` that runs at the MXU's
-    native int8 rate, 2-4x the f32/bf16 throughput that the exact
-    matcher's 6-pass HIGHEST matmul needs). The Lowe ratio test is
+    an int8 x int8 -> int32 ``dot_general``, which can use the integer
+    tensor-core rate instead of the exact matcher's full-f32 HIGHEST
+    matmul). The Lowe ratio test is
     scale-invariant, so acceptance semantics survive quantization up
     to rounding of near-ties (recall >= 0.99 vs exact on SIFT
     descriptors, tests/test_matching.py). Distances are returned
@@ -236,13 +243,13 @@ def match_descriptors_pruned(desc_l: jnp.ndarray, valid_l: jnp.ndarray,
                              desc_r: jnp.ndarray, valid_r: jnp.ndarray,
                              ratio: float = RATIO, sketch_dim: int = 16,
                              shortlist: int = 64) -> MatchResult:
-    """Two-stage matcher: a ``sketch_dim``-d PCA sketch prefilter on the
-    MXU shortlists ``shortlist`` candidates per left descriptor; the
+    """Two-stage matcher: a ``sketch_dim``-d PCA sketch prefilter (one
+    matmul) shortlists ``shortlist`` candidates per left descriptor; the
     exact 128-d squared-L2 top-2 + ratio test then runs only on the
     shortlist. The structural answer to O(N^2) SfM matching the
     reference's brute force (features.cu:197-219) cannot scale to —
     a cascade-hash-style cascade built from matmuls instead of hash
-    tables (TPU-shaped: no buckets, no scatter).
+    tables (no buckets, no scatter).
 
     Exact when ``shortlist >= R``; otherwise approximate with measured
     recall >= 0.99 vs exhaustive on SIFT descriptors (the sketch
@@ -257,6 +264,8 @@ def match_descriptors_pruned(desc_l: jnp.ndarray, valid_l: jnp.ndarray,
     sr = (desc_r - mu) @ P                                   # [R, S]
     ssl = jnp.sum(sl * sl, axis=1)
     ssr = jnp.sum(sr * sr, axis=1)
+    # default precision on purpose: the sketch only shortlists, and the
+    # exact f32 pass below decides (precision policy, module docstring)
     cross = jax.lax.dot_general(
         sl, sr, dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32)                  # [L, R]
@@ -268,7 +277,7 @@ def match_descriptors_pruned(desc_l: jnp.ndarray, valid_l: jnp.ndarray,
     dr = desc_r[cand]                                        # [L, C, 128]
     vr = valid_r[cand]
     diff = desc_l[:, None, :] - dr
-    d2 = jnp.sum(diff * diff, axis=-1)                       # f32, VPU
+    d2 = jnp.sum(diff * diff, axis=-1)                       # exact f32
     d2 = jnp.where(vr, d2, jnp.inf)
 
     b_c = jnp.argmin(d2, axis=1).astype(jnp.int32)

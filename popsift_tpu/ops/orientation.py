@@ -1,12 +1,12 @@
 """Keypoint orientation assignment in JAX.
 
-TPU-first redesign of the reference orientation kernel
+Redesign of the reference orientation kernel
 (/root/reference/src/popsift/s_orientation.cu:60-242):
 
 * one CUDA block per extremum with shared-memory atomics becomes a
   batched computation over the capacity-padded extrema buffer: every
   keypoint scans the same static (2*R_max+1)^2 window with validity
-  masks (radius, image bounds), histogram built by one-hot matmul.
+  masks (radius, image bounds), histogram built by 36 masked sums.
 * the warp bitonic top-peak sort (s_orientation.cu:207-215) becomes
   ``lax.top_k`` over the 36 refined peak values.
 * VLFeat smoothing (3 iterations of two circular box-3 passes,
@@ -50,9 +50,8 @@ def max_ori_radius(cfg: SiftConfig) -> int:
 
 
 def _orientation_hist_xla(blur, ext, cfg, R, y_bounds=None):
-    """Histogram via patch extraction + per-bin masked reductions
-    (CPU/fallback path; a one-hot einsum would materialize
-    [K, P*P, 36] ~ 1 GB per image).
+    """Histogram via patch extraction + per-bin masked reductions (a
+    one-hot einsum would materialize [K, P*P, 36], ~1 GB per image).
 
     ``y_bounds=(lo, hi)``: inclusive valid row range in *local*
     coordinates (spatial sharding passes the band's global-bound
@@ -110,63 +109,20 @@ def _orientation_hist_xla(blur, ext, cfg, R, y_bounds=None):
          for b in range(ORI_NBINS)], axis=1)
 
 
-def pad_for_window_kernels(blur: jnp.ndarray, H: int, W: int) -> jnp.ndarray:
-    """Edge-pad an octave image once for BOTH window-DMA kernels
-    (orientation 64x256 windows, descriptor 112x256 windows). Padding
-    dominated the frame profile when each kernel padded its own copy
-    (~4.9 ms/frame of concatenate+pad HBM traffic at 1080p)."""
-    Hp = max(-(-(H + 64) // 8) * 8, 112)
-    Wp = max(-(-(W + 240) // 128) * 128, 256)
-    return jnp.pad(blur, ((0, 0), (0, Hp - H), (0, Wp - W)), mode="edge")
-
-
 def orientation_histograms(blur: jnp.ndarray, ext: OctaveExtrema,
                            cfg: SiftConfig,
-                           use_pallas: bool | None = None,
-                           y_bounds=None, padded=None,
-                           dims: tuple | None = None,
-                           seg=None) -> jnp.ndarray:
+                           y_bounds=None) -> jnp.ndarray:
     """Raw 36-bin gradient histograms f32[K, 36] for one octave's
     (padded) extrema — the only orientation phase that reads the octave
     image; the peak-finding tail (:func:`orientations_from_histograms`)
     is image-free and batches across octaves in the pipeline.
 
     Gradient reads go through one contiguous window per keypoint instead
-    of per-pixel gathers; on TPU the histogram runs as a Pallas kernel
-    with in-kernel window DMA (ops/pallas/orient.py). ``y_bounds`` (see
-    _orientation_hist_xla) forces the XLA path — used by the sharded
-    extraction where ``blur`` is a halo'd row band.
+    of per-pixel gathers. ``y_bounds`` (see _orientation_hist_xla) is
+    used by the sharded extraction, where ``blur`` is a halo'd row band.
     """
-    from .pallas.orient import orientation_hist_pallas, ori_pallas_available
-
-    if blur is None:
-        # canvas-only pipeline path: padded is the shared gauss canvas
-        # (pyramid.assemble_gauss_canvas) and dims carries the true
-        # octave size — the Pallas kernels mask out-of-image samples
-        # in-kernel, so no dense unpadded stack need exist.
-        H, W = dims
-    else:
-        _, H, W = blur.shape
-    R = max_ori_radius(cfg)
-    if use_pallas is None:
-        use_pallas = ori_pallas_available() and y_bounds is None
-    if use_pallas and R <= 26:
-        from .pallas.orient import orientation_hist_pallas_bucketed
-
-        img2 = padded if padded is not None else \
-            pad_for_window_kernels(blur, H, W)
-        # radius bucketing: level <= 2 keypoints (the bulk) take the
-        # small-window kernel instance (same scheme as descriptors)
-        sigma_split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
-        radius_small = int(round(3.0 * ORI_WINFACTOR * sigma_split))
-        # small octaves: the bucket split's fixed cost (sort + regather
-        # + a second kernel launch) exceeds the window-size win —
-        # round-5 glue audit; only candidate lists >= 1024 rows bucket
-        if R > radius_small + 6 and ext.x.shape[0] >= 1024:
-            return orientation_hist_pallas_bucketed(
-                img2, ext, R, sigma_split, radius_small, H, W, seg=seg)
-        return orientation_hist_pallas(img2, ext, R, H, W, seg=seg)
-    return _orientation_hist_xla(blur, ext, cfg, R, y_bounds=y_bounds)
+    return _orientation_hist_xla(blur, ext, cfg, max_ori_radius(cfg),
+                                 y_bounds=y_bounds)
 
 
 def smooth_histograms(hist: jnp.ndarray, smoothing: str = "vlfeat"
@@ -233,12 +189,10 @@ def orientations_from_histograms(hist: jnp.ndarray,
 
 def assign_orientations(blur: jnp.ndarray, ext: OctaveExtrema,
                         cfg: SiftConfig,
-                        use_pallas: bool | None = None,
                         y_bounds=None) -> OctaveOrientations:
     """Compute up to 4 orientations for each (padded) extremum —
     histogram + peak tail in one call (single-octave convenience form;
     the pipeline batches the tail across octaves itself)."""
-    hist = orientation_histograms(blur, ext, cfg, use_pallas=use_pallas,
-                                  y_bounds=y_bounds)
+    hist = orientation_histograms(blur, ext, cfg, y_bounds=y_bounds)
     return orientations_from_histograms(hist, ext.valid,
                                         smoothing=cfg.ori_smoothing)

@@ -1,22 +1,26 @@
-"""Pallas TPU kernel: SIFT descriptor extraction (loop variant).
+"""Pallas kernel (Triton route): SIFT descriptors, loop variant, for
+NVIDIA GPUs.
 
-The hottest loop of the pipeline (reference: one CUDA block per
-(keypoint, orientation) scanning a data-dependent bbox,
-s_desc_loop.cu:19-161). The XLA formulation materializes ~20 [F, P^2]
-f32 intermediates per chunk plus [F, P^2, 4] tile-weight products per
-angle bin — ~18 GB of HBM traffic per 1080p frame (measured ~40 ms).
+The reference computes its hottest stage with one CUDA block per
+(keypoint, orientation) that scans the keypoint's data-dependent
+bounding box and accumulates 128 bins (s_desc_loop.cu:19-161). This
+kernel keeps that shape: one Triton program per descriptor job. The
+program reads its own window of the blur level straight from device
+memory, tile by tile (``_RS`` rows x ``_CS`` columns), and keeps the
+whole per-pixel pipeline in registers — gradient by central
+differences, rotated coordinates, Gaussian weight, tile triangles and
+the angle-bin split. Each tile's contribution is one small contraction
 
-This kernel reads each job's patch from HBM exactly once and keeps the
-whole per-pixel pipeline (gradient, angle, Gaussian window, tile
-triangles, angle-bin split) in VMEM; the 128-value histogram falls out
-of one small MXU contraction per job:
+    desc[(ty, tx), b] += sum_p  wy[p, ty] * wx[p, tx] * cb[p, b]
+                        ([16, T] x [T, 16], bins padded 8 -> 16)
 
-    M[p, (ty,b)] = wy[p,ty] * cb[p,b]        (VMEM build, [P^2, 32])
-    desc[(ty,b), tx] = M^T @ wx              ([32, P^2] x [P^2, 4])
+accumulated in f32 at IEEE precision. The window is sized per job from
+its own sigma (the reference's data-dependent bbox), so low-level
+keypoints — the bulk — scan a fraction of the static worst-case patch.
 
-Per-frame cost: one 284 MB patch read + ~5 ms of VPU math.
-Semantics identical to ops.descriptors._descriptor_loop_chunk
-(cross-checked in interpret mode by tests).
+``ops.descriptors._descriptor_loop_chunk`` is the plain reference; the
+two agree to float rounding (tests/test_desc_kernel.py, and
+``chip_smoke.py`` for the compiled kernel).
 """
 
 from __future__ import annotations
@@ -28,426 +32,160 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...config import DESC_BINS, DESC_MAGNIFY
 
-_G = 16  # jobs per grid step
-
-# Mosaic has no atan/atan2 primitive; fit an odd polynomial for
-# atan(t) on [0, 1] (least-squares over odd powers t..t^15, max error
-# ~1e-7 rad — three orders below the pi/4 angle-bin width).
-_ATAN_POWERS = (1, 3, 5, 7, 9, 11, 13, 15)
-_tt = np.linspace(0.0, 1.0, 8192)
-_A = np.stack([_tt ** k for k in _ATAN_POWERS], axis=1)
-_ATAN_COEF = np.linalg.lstsq(_A, np.arctan(_tt), rcond=None)[0].astype(
-    np.float32)
-del _tt, _A
+_RS = 8            # window rows per tile
+_CS = 32           # window columns per tile (one warp-wide row segment)
+_T = _RS * _CS     # pixels per tile
+_NB = 16           # angle bins padded to Triton's minimum dot width
 
 
-def _atan2(y, x):
-    """Elementwise atan2 from supported primitives (jnp.arctan2
-    semantics for finite inputs; (0, 0) -> 0)."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    mx = jnp.maximum(ax, ay)
-    mn = jnp.minimum(ax, ay)
-    t = mn / jnp.where(mx > 0.0, mx, 1.0)
-    t2 = t * t
-    r = jnp.zeros_like(t)
-    for c in _ATAN_COEF[::-1]:
-        r = r * t2 + np.float32(c)
-    r = r * t
-    r = jnp.where(ay > ax, np.float32(0.5 * math.pi) - r, r)
-    r = jnp.where(x < 0.0, np.float32(math.pi) - r, r)
-    return jnp.where(y < 0.0, -r, r)
+def support_radius(sigma: jnp.ndarray) -> jnp.ndarray:
+    """Per-job scan radius: used pixels satisfy |n|_inf < 2.5 in
+    descriptor units, so |p - kp| < 2.5*sqrt(2)*SBP (s_desc_loop.cu:58-91),
+    plus the half-pixel rounding of the window centre and one guard."""
+    sbp = jnp.abs(np.float32(DESC_MAGNIFY) * sigma)
+    return (jnp.ceil(np.float32(2.5 * math.sqrt(2.0)) * sbp)
+            .astype(jnp.int32) + 2)
 
 
-def _desc_kernel(par_ref, patch_ref, out_ref, *, P, PL):
-    """par_ref f32[G, 16]: (x, y, sigma, ang, y0, x0, valid, unused,
-    ylo, yhi, xhi, 0...) — bounds are PER JOB so one launch can serve
-    many octave segments stacked in a canvas atlas. patch_ref
-    f32[G, P, PL] (PL lane-aligned); out_ref f32[G, 8, 16] laid out as
-    (b, (ty, tx))."""
-    _desc_math(patch_ref[:], par_ref[:], out_ref, P=P, PL=PL)
+def _kernel(fpar_ref, ipar_ref, img_ref, out_ref, *, W):
+    x = fpar_ref[0]
+    y = fpar_ref[1]
+    crsbp = fpar_ref[2]
+    srsbp = fpar_ref[3]
+    ang = fpar_ref[4]
+    r_lo = fpar_ref[5]
+    c_lo = fpar_ref[6]
+    base = ipar_ref[0]
+    n_rows = ipar_ref[1]
+    n_cols = ipar_ref[2]
+    n_tx = ipar_ref[3]
+    n_tiles = ipar_ref[4]
 
-
-def _desc_math(patch, par, out_ref, *, P, PL):
-    """Shared per-pixel pipeline + histogram contraction.
-    patch f32[G, P, PL]; par f32[G, 16]; writes out_ref [G, 8, 16]."""
-    G = _G
-
-    # per-pixel image coordinates (2-D iota only; Mosaic rejects 3-D)
-    ii = jax.lax.broadcasted_iota(jnp.int32, (P, PL), 0).astype(
-        jnp.float32)[None]                                     # row i
-    jj = jax.lax.broadcasted_iota(jnp.int32, (P, PL), 1).astype(
-        jnp.float32)[None]                                     # col j
-    x0 = par[:, 5][:, None, None]
-    y0 = par[:, 4][:, None, None]
-    px = x0 + jj
-    py = y0 + ii
-
-    # gradient at integer pixels by central differences; border rows and
-    # columns of the patch are never inside a valid window (masked below)
-    zero_col = jnp.zeros((G, P, 1), jnp.float32)
-    dxv = (jnp.concatenate([patch[:, :, 1:], zero_col], axis=2)
-           - jnp.concatenate([zero_col, patch[:, :, :-1]], axis=2))
-    zero_row = jnp.zeros((G, 1, PL), jnp.float32)
-    dyv = (jnp.concatenate([patch[:, 1:, :], zero_row], axis=1)
-           - jnp.concatenate([zero_row, patch[:, :-1, :]], axis=1))
-    mod = jnp.sqrt(dxv * dxv + dyv * dyv)
-    th = _atan2(dyv, dxv)
-
-    sig = par[:, 2][:, None, None]
-    ang = par[:, 3][:, None, None]
-    sbp = jnp.abs(np.float32(DESC_MAGNIFY) * sig)
-    inv_sbp = jnp.where(sbp > 0.0, 1.0 / jnp.where(sbp > 0.0, sbp, 1.0),
-                        0.0)
-    cos_t = jnp.cos(ang)
-    sin_t = jnp.sin(ang)
-    crsbp = cos_t * inv_sbp
-    srsbp = sin_t * inv_sbp
-
-    fdx = px - par[:, 0][:, None, None]
-    fdy = py - par[:, 1][:, None, None]
-    nxg = crsbp * fdx + srsbp * fdy            # global rotated coords
-    nyg = crsbp * fdy - srsbp * fdx
-
-    ylo = par[:, 8][:, None, None]
-    yhi = par[:, 9][:, None, None]
-    xhi = par[:, 10][:, None, None]
-    inb = (px >= 1.0) & (px <= xhi) & (py >= ylo) & (py <= yhi)
-
+    q = jnp.arange(_T, dtype=jnp.int32)
+    qr = q // _CS
+    qc = q % _CS
+    k = jnp.arange(16, dtype=jnp.int32)[None, :]
+    cent_y = (k // 4).astype(jnp.float32) - np.float32(1.5)   # tile ty
+    cent_x = (k % 4).astype(jnp.float32) - np.float32(1.5)    # tile tx
     two_pi = np.float32(2.0 * math.pi)
-    tha = th - ang
-    tha = jnp.where(tha < 0.0, tha + two_pi, tha)
-    tha = jnp.where(tha >= two_pi, tha - two_pi, tha)
-    tth = tha * np.float32(4.0 / math.pi)
-    fo = jnp.floor(tth)
-    frac = tth - fo
-    fo = fo.astype(jnp.int32)
-    fo0 = jax.lax.rem(fo, DESC_BINS)
-    fo0 = jnp.where(fo0 < 0, fo0 + DESC_BINS, fo0)
-    fo1 = jax.lax.rem(fo + 1, DESC_BINS)
-    fo1 = jnp.where(fo1 < 0, fo1 + DESC_BINS, fo1)
 
-    ww = jnp.exp(np.float32(-0.125) * (nxg * nxg + nyg * nyg))
-    wgt = jnp.where(inb, ww * mod, 0.0)        # [G, P, P]
-
-    valid = par[:, 6][:, None, None] > 0.5
-    wgt = jnp.where(valid & (sbp > 0.0), wgt, 0.0)
-
-    # per-tile triangular weights; tiles centered at -1.5..1.5
     def tri(n, c):
         a = jnp.abs(n - c)
         return jnp.where(a < 1.0, 1.0 - a, 0.0)
 
-    # Histogram contraction per job on the MXU. Mosaic supports merging
-    # a lane-aligned (P, PL) pixel field into one contraction axis via
-    # reshape. Factoring as (wy x wx)[16, p] against cb[8, p] minimizes
-    # the VMEM build traffic (the 3-way product admits no 2-dot
-    # factorization, so one [16, p] or [32, p] operand must
-    # materialize; 16 beats 32).
-    bins4 = jax.lax.broadcasted_iota(jnp.int32, (4, P, PL), 0)
-    bins8 = jax.lax.broadcasted_iota(jnp.int32, (DESC_BINS, P, PL), 0)
-    cents = bins4.astype(jnp.float32) - np.float32(1.5)
-    for g in range(_G):
-        wy = tri(nyg[g][None], cents)          # [4, P, PL]
-        wx = tri(nxg[g][None], cents)
-        cb = wgt[g][None] * (
-            jnp.where(fo0[g][None] == bins8, 1.0 - frac[g][None], 0.0)
-            + jnp.where(fo1[g][None] == bins8, frac[g][None], 0.0))
-        wyx = (wy[:, None] * wx[None]).reshape(16, P * PL)
-        desc = jax.lax.dot_general(
-            cb.reshape(DESC_BINS, P * PL), wyx,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)             # [8, 16]
-        out_ref[g] = desc
+    def tile(t, acc):
+        ty = t // n_tx
+        tx = t - ty * n_tx
+        r = ty * _RS + qr
+        c = tx * _CS + qc
+        m = (r < n_rows) & (c < n_cols)
+        off = base + r * W + c
+        ld = functools.partial(plgpu.load, mask=m, other=0.0)
+        dx = ld(img_ref.at[off + 1]) - ld(img_ref.at[off - 1])
+        dy = ld(img_ref.at[off + W]) - ld(img_ref.at[off - W])
+        mod = jnp.sqrt(dx * dx + dy * dy)
+        th = jnp.arctan2(dy, dx)
+
+        fdx = (c_lo + c.astype(jnp.float32)) - x
+        fdy = (r_lo + r.astype(jnp.float32)) - y
+        nx = crsbp * fdx + srsbp * fdy          # global rotated coords
+        ny = crsbp * fdy - srsbp * fdx
+
+        tha = th - ang
+        tha = jnp.where(tha < 0.0, tha + two_pi, tha)
+        tha = jnp.where(tha >= two_pi, tha - two_pi, tha)
+        tth = tha * np.float32(4.0 / math.pi)
+        fo_f = jnp.floor(tth)
+        frac = tth - fo_f
+        fo = fo_f.astype(jnp.int32)             # in [0, 8]
+        fo0 = jnp.where(fo >= DESC_BINS, fo - DESC_BINS, fo)
+        fo1 = jnp.where(fo + 1 >= DESC_BINS, fo + 1 - DESC_BINS, fo + 1)
+
+        ww = jnp.exp(np.float32(-0.125) * (nx * nx + ny * ny))
+        wgt = jnp.where(m, ww * mod, 0.0)
+
+        wyx = tri(ny[:, None], cent_y) * tri(nx[:, None], cent_x)  # [T, 16]
+        cb = wgt[:, None] * (
+            jnp.where(fo0[:, None] == k, (1.0 - frac)[:, None], 0.0)
+            + jnp.where(fo1[:, None] == k, frac[:, None], 0.0))    # [T, 16]
+        return acc + pl.dot(wyx, cb, trans_a=True,
+                            precision=jax.lax.Precision.HIGHEST)
+
+    acc = jax.lax.fori_loop(0, n_tiles, tile,
+                            jnp.zeros((16, _NB), jnp.float32))
+    out_ref[...] = acc
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("P", "PL", "interpret"))
-def _desc_call(params, patches, P, PL, interpret=False):
-    F = patches.shape[0]
-    grid = (F // _G,)
-    kernel = functools.partial(_desc_kernel, P=P, PL=PL)
+@functools.partial(jax.jit, static_argnames=("W", "interpret"))
+def _call(fpar, ipar, img_flat, W, interpret=False):
+    F = fpar.shape[0]
     return pl.pallas_call(
-        kernel,
-        grid=grid,
+        functools.partial(_kernel, W=W),
+        grid=(F,),
         in_specs=[
-            pl.BlockSpec((_G, 16), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_G, P, PL), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((_G, DESC_BINS, 16), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((F, DESC_BINS, 16), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(params, patches)
-
-
-def descriptor_loop_pallas(patches, y0, x0, jobs, H, W,
-                           interpret: bool = False):
-    """Descriptors for a padded job list from pre-extracted patches.
-
-    patches: f32[F, P, PL] rectangular lane-aligned windows
-    (extract_patches_rect); y0/x0: i32[F] patch origins; jobs:
-    DescriptorJobs; (H, W): octave image dims for the scan-bounds test.
-    Returns f32[F, 128] unnormalized descriptors.
-    """
-    F, P, PL = patches.shape
-    pad = (-F) % _G
-    ones = jnp.ones_like(jobs.x)
-    zeros = jnp.zeros_like(jobs.x)
-    params = jnp.stack([
-        jobs.x, jobs.y, jobs.sigma, jobs.ang,
-        y0.astype(jnp.float32), x0.astype(jnp.float32),
-        jobs.valid.astype(jnp.float32), zeros,
-        ones, ones * (H - 2.0), ones * (W - 2.0),
-        zeros, zeros, zeros, zeros, zeros], axis=1)   # [F, 16]
-    if pad:
-        params = jnp.pad(params, ((0, pad), (0, 0)))
-        patches = jnp.pad(patches, ((0, pad), (0, 0), (0, 0)))
-    out = _desc_call(params, patches, P, PL, interpret=interpret)
-    # [b, (ty, tx)] -> (ty, tx, b) flat 128
-    out = out.reshape(-1, DESC_BINS, 4, 4).transpose(0, 2, 3, 1)
-    return out.reshape(-1, 128)[:F]
-
-
-_WR = 112   # DMA window rows (104 patch rows + 8-row alignment slack)
-_WC = 256   # DMA window cols (128 patch cols + 128-lane alignment slack)
-
-
-def _desc_dma_kernel(nv_ref, lv_ref, ya_ref, ca_ref, pk_ref, par_ref,
-                     blur_hbm, out_ref, scratch, sems, *, P, PL,
-                     WR=None):
-    """DMA variant: patches are pulled straight from the blur stack.
-
-    nv: i32[1] count of valid (front-packed) jobs — grid blocks whose
-    slots are all past the count skip DMA and math entirely (job lists
-    are capacity-padded; typically <40% of slots are real).
-    lv/ya/ca/pk: i32[Fp] in SMEM — level, y0 aligned to 8, x0 aligned to
-    128, ry*256+rx sub-window offset (1-D: SMEM pads 2-D rows to 128
-    lanes). par_ref f32[G, 8] as in _desc_kernel. scratch
-    f32[2, G, WR, WC] double-buffered windows.
-    """
-    G = _G
-    WR = _WR if WR is None else WR
-    i = pl.program_id(0)
-    n = pl.num_programs(0)
-    slot = jax.lax.rem(i, 2)
-    nv = nv_ref[0]
-
-    def active(step):
-        return step * G < nv
-
-    def dma(step, to_slot, g):
-        j = step * G + g
-        y0a = pl.multiple_of(ya_ref[j], 8)
-        c0a = pl.multiple_of(ca_ref[j], 128)
-        return pltpu.make_async_copy(
-            blur_hbm.at[lv_ref[j], pl.ds(y0a, WR), pl.ds(c0a, _WC)],
-            scratch.at[to_slot, g],
-            sems.at[to_slot, g])
-
-    @pl.when((i == 0) & active(0))
-    def _():
-        for g in range(G):
-            dma(0, 0, g).start()
-
-    @pl.when((i + 1 < n) & active(i + 1))
-    def _():
-        for g in range(G):
-            dma(i + 1, jax.lax.rem(i + 1, 2), g).start()
-
-    @pl.when(active(i))
-    def _():
-        patches = []
-        for g in range(G):
-            dma(i, slot, g).wait()
-            pk = pk_ref[i * G + g]
-            ry = jax.lax.div(pk, 256)
-            rx = jax.lax.rem(pk, 256)
-            w = pltpu.roll(pltpu.roll(scratch[slot, g], WR - ry, 0),
-                           _WC - rx, 1)
-            patches.append(w[:P, :PL])
-        patch = jnp.stack(patches)              # [G, P, PL]
-        _desc_math(patch, par_ref[:], out_ref, P=P, PL=PL)
-
-    @pl.when(jnp.logical_not(active(i)))
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("P", "PL", "WR", "interpret"))
-def _desc_dma_call(nv, lv, ya, ca, pk, params, blur, P, PL,
-                   WR=_WR, interpret=False):
-    F = params.shape[0]
-    grid = (F // _G,)
-    kernel = functools.partial(_desc_dma_kernel, P=P, PL=PL,
-                               WR=WR)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((_G, 16), lambda i, *s: (i, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, 8), lambda i: (i, 0)),
+            pl.BlockSpec((None, 8), lambda i: (i, 0)),
             pl.BlockSpec(memory_space=pl.ANY),
         ],
-        out_specs=pl.BlockSpec((_G, DESC_BINS, 16), lambda i, *s: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, _G, WR, _WC), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, _G)),
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((F, DESC_BINS, 16), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+        out_specs=pl.BlockSpec((None, 16, _NB), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((F, 16, _NB), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(nv, lv, ya, ca, pk, params, blur)
+        name="sift_desc_loop",
+    )(fpar, ipar, img_flat)
 
 
-def descriptor_loop_pallas_dma(blur, jobs, radius, H, W, seg=None,
-                               interpret: bool = False):
-    """Descriptors straight from the octave blur stack: per-job windows
-    are DMA'd inside the kernel (double-buffered), eliminating the
-    materialized [F, P, PL] patch array and its second HBM pass.
+def descriptor_loop_triton(blur: jnp.ndarray, jobs, radius: int,
+                           y_bounds=None,
+                           interpret: bool = False) -> jnp.ndarray:
+    """Unnormalized loop-variant descriptors f32[F, 128] for a job list.
 
-    blur: f32[L, Hb, Wb]; the caller must edge-pad so every aligned
-    window fits (see compute_descriptors). Patch geometry: P rows
-    (sized to ``radius``, max 104) x PL=128 cols around each keypoint
-    (radius <= 51). Per-job VPU cost scales with P, which is why the
-    caller buckets jobs by sigma (descriptor_loop_pallas_bucketed).
-
-    ``seg=(yoff, hcan, wcan, him, wim)`` (per-row arrays) runs the
-    octave-atlas form: ``blur`` is the stacked atlas and each row's
-    octave segment starts at atlas row ``yoff`` (a multiple of 8) with
-    canvas dims (hcan, wcan) and image dims (him, wim). Window-origin
-    clips, patch coordinates and bounds all stay OCTAVE-LOCAL
-    (bit-identical to the per-octave launch); only the DMA row address
-    adds ``yoff``.
+    blur: f32[L, H, W] octave blur stack (unpadded: the kernel masks its
+    reads). ``radius`` is the static window bound the plain reference
+    uses (descriptors.loop_patch_radius); each job scans at most that.
+    ``y_bounds=(lo, hi)``: inclusive valid row range in local
+    coordinates, two scalars that may be traced (the sharded row-band
+    path); default ``(1, H-2)``. Invalid jobs and sigma 0 give zero rows.
     """
-    L, Hb, Wb = blur.shape
-    P = min(-(-(2 * radius + 2) // 8) * 8, 104)
-    PL = 128
-    WR = P + 8
+    L, H, W = blur.shape
     F = jobs.x.shape[0]
-    pad = (-F) % _G
+    if F == 0:
+        return jnp.zeros((0, 128), jnp.float32)
+    if y_bounds is None:
+        y_lo, y_hi = 1, H - 2
+    else:
+        y_lo, y_hi = y_bounds
+    # gradient reads touch rows y-1 .. y+1: keep them inside the array
+    y_lo = jnp.maximum(jnp.asarray(y_lo, jnp.int32), 1)
+    y_hi = jnp.minimum(jnp.asarray(y_hi, jnp.int32), H - 2)
 
+    sbp = jnp.abs(np.float32(DESC_MAGNIFY) * jobs.sigma)
+    inv_sbp = jnp.where(sbp > 0, 1.0 / jnp.where(sbp > 0, sbp, 1.0), 0.0)
+    rj = jnp.minimum(support_radius(jobs.sigma), radius)
     xr = jnp.round(jobs.x).astype(jnp.int32)
     yr = jnp.round(jobs.y).astype(jnp.int32)
-    ones = jnp.ones_like(jobs.x)
-    if seg is None:
-        hc, wc = Hb, Wb
-        ylo, yhi, xhi = ones, ones * (H - 2.0), ones * (W - 2.0)
-        yoff = 0
-    else:
-        yoff, hc, wc, him, wim = seg
-        ylo = ones
-        yhi = him.astype(jnp.float32) - 2.0
-        xhi = wim.astype(jnp.float32) - 2.0
-    y0 = jnp.clip(yr - radius, 0, hc - WR)
-    x0 = jnp.clip(xr - radius, 0, wc - _WC)
-    y0a = (y0 // 8) * 8 + yoff          # yoff is 8-aligned: pk unchanged
-    c0a = (x0 // 128) * 128
-    lv = jnp.clip(jobs.level, 0, L - 1).astype(jnp.int32)
-    pk = ((y0 - (y0 // 8) * 8) * 256 + (x0 - c0a)).astype(jnp.int32)
-    zeros = jnp.zeros_like(jobs.x)
-    params = jnp.stack([
-        jobs.x, jobs.y, jobs.sigma, jobs.ang,
-        y0.astype(jnp.float32), x0.astype(jnp.float32),
-        jobs.valid.astype(jnp.float32), zeros,
-        ylo, yhi, xhi,
-        zeros, zeros, zeros, zeros, zeros], axis=1)
-    if pad:
-        lv, y0a, c0a, pk = (jnp.pad(a, (0, pad))
-                            for a in (lv, y0a, c0a, pk))
-        params = jnp.pad(params, ((0, pad), (0, 0)))
-    nv = jobs.count.astype(jnp.int32).reshape(1)
-    out = _desc_dma_call(nv, lv, y0a.astype(jnp.int32),
-                         c0a.astype(jnp.int32), pk, params, blur,
-                         P, PL, WR=WR, interpret=interpret)
-    # [b, (ty, tx)] -> (ty, tx, b) flat 128
-    out = out.reshape(-1, DESC_BINS, 4, 4).transpose(0, 2, 3, 1)
-    return out.reshape(-1, 128)[:F]
+    r_lo = jnp.maximum(yr - rj, y_lo)
+    c_lo = jnp.maximum(xr - rj, 1)
+    n_rows = jnp.maximum(jnp.minimum(yr + rj, y_hi) - r_lo + 1, 0)
+    n_cols = jnp.maximum(jnp.minimum(xr + rj, W - 2) - c_lo + 1, 0)
+    n_tx = (n_cols + _CS - 1) // _CS
+    n_tiles = jnp.where(jobs.valid & (sbp > 0),
+                        ((n_rows + _RS - 1) // _RS) * n_tx, 0)
+    lvl = jnp.clip(jobs.level, 0, L - 1)
+    base = (lvl * H + r_lo) * W + c_lo
 
-
-def descriptor_loop_pallas_multibucket(blur, jobs, buckets, H, W,
-                                       seg=None,
-                                       interpret: bool = False):
-    """Sigma-bucketed descriptor extraction over N kernel instances.
-
-    ``buckets`` is an ascending list of ``(sigma_hi, radius)`` pairs
-    (the last entry's ``sigma_hi`` is ignored — it catches the rest):
-    jobs route to the first bucket whose ``sigma_hi`` bounds their
-    sigma, and each bucket runs a kernel instance whose static patch
-    rows P are sized to its radius. Per-job VPU cost scales with P,
-    but most keypoints sit at low levels (small sigma) — the
-    reference's loop variant gets the same effect from its
-    data-dependent bbox (s_desc_loop.cu:58-91), which static shapes
-    cannot express; front-packed per-bucket job lists recover most of
-    it (the kernels skip grid blocks past their job count, so compute
-    follows the actual bucket sizes, not the padded capacity).
-    """
-    from ..descriptors import DescriptorJobs
-    from ..extrema import first_set_indices
-
-    F = jobs.x.shape[0]
-    masks = []
-    remaining = jobs.valid
-    for s_hi, _ in buckets[:-1]:
-        m = remaining & (jobs.sigma <= s_hi)
-        masks.append(m)
-        remaining = remaining & ~m
-    masks.append(remaining)
-
-    def bucket(mask):
-        n = jnp.sum(mask, dtype=jnp.int32)
-        idx = first_set_indices(mask, F)
-        sel = lambda a: a[idx]
-        bsel = (None if seg is None
-                else tuple(sel(b) for b in seg))
-        return DescriptorJobs(
-            x=sel(jobs.x), y=sel(jobs.y), sigma=sel(jobs.sigma),
-            level=sel(jobs.level), ang=sel(jobs.ang),
-            kp_index=sel(jobs.kp_index),
-            valid=jnp.arange(F, dtype=jnp.int32) < n, count=n), bsel
-
-    outs = []
-    for m, (_, rad) in zip(masks, buckets):
-        bj, bb = bucket(m)
-        outs.append(descriptor_loop_pallas_dma(blur, bj, rad, H, W,
-                                               seg=bb,
-                                               interpret=interpret))
-    # gather back to original row order (ranks within each bucket)
-    src = jnp.zeros((F,), jnp.int32)
-    for i, m in enumerate(masks):
-        rank = jnp.cumsum(m.astype(jnp.int32)) - 1
-        src = jnp.where(m, i * F + rank, src)
-    out = jnp.concatenate(outs, axis=0)[src]
-    return jnp.where(jobs.valid[:, None], out, 0.0)
-
-
-def descriptor_loop_pallas_bucketed(blur, jobs, radius, sigma_split,
-                                    radius_small, H, W,
-                                    interpret: bool = False):
-    """Two-bucket convenience form of
-    :func:`descriptor_loop_pallas_multibucket`."""
-    return descriptor_loop_pallas_multibucket(
-        blur, jobs, [(sigma_split, radius_small), (None, radius)],
-        H, W, interpret=interpret)
-
-
-def desc_pallas_available() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+    zf = jnp.zeros_like(jobs.x)
+    fpar = jnp.stack([jobs.x, jobs.y, jnp.cos(jobs.ang) * inv_sbp,
+                      jnp.sin(jobs.ang) * inv_sbp, jobs.ang,
+                      r_lo.astype(jnp.float32), c_lo.astype(jnp.float32),
+                      zf], axis=1)
+    zi = jnp.zeros_like(base)
+    ipar = jnp.stack([base, n_rows, n_cols, n_tx, n_tiles, zi, zi, zi],
+                     axis=1).astype(jnp.int32)
+    out = _call(fpar, ipar, blur.reshape(-1), W, interpret=interpret)
+    return out[:, :, :DESC_BINS].reshape(F, 128)

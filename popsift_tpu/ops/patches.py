@@ -1,11 +1,10 @@
-"""Patch extraction: the TPU substitute for texture fetches.
+"""Patch extraction: the XLA stand-in for texture fetches.
 
-TPUs have no gather hardware; per-pixel texture reads (readTex,
-/root/reference/src/popsift/common/assist.h:66-81) must not become XLA
-scalar gathers (~one element per cycle). Instead each keypoint pulls one
-*contiguous* window of its blur level via a batched dynamic_slice — rows
-are contiguous, so the lowered gather moves whole cache lines — and all
-subsequent arithmetic is dense on the VPU.
+Per-pixel texture reads (readTex,
+/root/reference/src/popsift/common/assist.h:66-81) become one
+*contiguous* window of the keypoint's blur level per keypoint, pulled by
+a batched dynamic_slice (rows are contiguous, so the lowered gather
+moves whole rows), and all subsequent arithmetic is dense.
 
 Edge semantics: the reference's clamped texture reads equal
 edge-replication. Levels smaller than the patch are pre-padded with
@@ -18,7 +17,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def pad_for_patches(img: jnp.ndarray, patch: int) -> jnp.ndarray:
@@ -50,27 +48,6 @@ def extract_patches(img: jnp.ndarray, level: jnp.ndarray,
 
     def one(l, y, x):
         return jax.lax.dynamic_slice(img, (l, y, x), (1, P, P))[0]
-
-    patches = jax.vmap(one)(lv, y0, x0)
-    return patches, y0, x0
-
-
-def extract_patches_rect(img: jnp.ndarray, level: jnp.ndarray,
-                         cy: jnp.ndarray, cx: jnp.ndarray,
-                         rows: int, cols: int, radius_y: int,
-                         radius_x: int):
-    """Rectangular variant of :func:`extract_patches` with independent
-    window extents — used by the Pallas descriptor kernel, which wants
-    lane-aligned (128-column) windows. The window is placed so the
-    center sits ``radius_y``/``radius_x`` cells from the top-left,
-    clamped to the image."""
-    L, H, W = img.shape
-    y0 = jnp.clip(cy - radius_y, 0, H - rows)
-    x0 = jnp.clip(cx - radius_x, 0, W - cols)
-    lv = jnp.clip(level, 0, L - 1)
-
-    def one(l, y, x):
-        return jax.lax.dynamic_slice(img, (l, y, x), (1, rows, cols))[0]
 
     patches = jax.vmap(one)(lv, y0, x0)
     return patches, y0, x0

@@ -1,6 +1,6 @@
 """Gaussian scale-space pyramid construction in JAX.
 
-TPU-first re-design of the reference pyramid builder
+Re-design of the reference pyramid builder
 (/root/reference/src/popsift/s_pyramid_build*.cu). The CUDA version is a
 texture/stream/surface machine; here each octave is a dense
 ``f32[L, H, W]`` array and the whole pyramid is one XLA program:
@@ -131,17 +131,15 @@ def _conv1d_valid(x: jnp.ndarray, kernel: np.ndarray, axis: int) -> jnp.ndarray:
     """Valid-mode symmetric 1-D convolution along ``axis`` as an explicit
     shift-and-add stencil.
 
-    Deliberately NOT lax.conv: XLA lowers convolutions through the MXU
-    with bf16 multiplication passes by default, which costs ~3 decimal
-    digits — fatal for DoG thresholding. The shift-add form stays in f32
-    on the VPU, fuses with neighbours, and exploits kernel symmetry
-    (half the multiplies), mirroring the reference's paired-tap loop
+    Not lax.conv: a default-precision convolution may run with reduced
+    precision multiplies, which costs ~3 decimal digits — fatal for DoG
+    thresholding. The shift-add form stays in f32, fuses with its
+    neighbours, and exploits kernel symmetry (half the multiplies),
+    mirroring the reference's paired-tap loop
     (s_pyramid_build_aa.cu:35-49).
 
-    Slices run along ``axis`` in place (no moveaxis): the round-5 trace
-    showed the moveaxis form made every vertical-pass output materialize
-    transposed ([W, H]), and each canvas dynamic-update-slice then paid
-    a full relayout copy (~0.12 ms per 1080p level)."""
+    Slices run along ``axis`` in place (no moveaxis), so no output
+    materializes transposed."""
     klen = kernel.shape[0]
     span = (klen + 1) // 2           # center + one-sided taps
     n = x.shape[axis]
@@ -220,8 +218,7 @@ def _upsample2_axis(img: jnp.ndarray, axis: int) -> jnp.ndarray:
     grid: with shift = 2^upscale * 0.5 = 1.0 and ratio 1/2, destination
     position p maps to source (p + 1) * 0.5 - 0.5 = p/2 — even outputs
     are source pixels, odd outputs are midpoints. Pure slicing +
-    interleave (no gather: TPU gathers on a 8M-pixel image cost ~45 ms,
-    this is 3 VPU passes)."""
+    interleave, no gather."""
     x = jnp.moveaxis(img, axis, 0)
     n = x.shape[0]
     nxt = jnp.concatenate([x[1:], x[-1:]], axis=0)   # clamp last
@@ -239,10 +236,9 @@ def _row_interleave(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def _interleave2x2(planes) -> jnp.ndarray:
-    """planes[py][px] f32[H, W] -> f32[2H, 2W]. Lane-dim interleave is
-    done as transpose -> row interleave -> transpose: TPU transposes are
-    bandwidth-bound relayouts while direct minor-dim interleaves lower
-    to element shuffles (~40x slower, measured)."""
+    """planes[py][px] f32[H, W] -> f32[2H, 2W]. The minor-dim
+    interleave is done as transpose -> row interleave -> transpose, so
+    every reshape is layout-free."""
     (p00, p01), (p10, p11) = planes
     q0 = _row_interleave(p00, p10)          # [2H, W]
     q1 = _row_interleave(p01, p11)
@@ -251,9 +247,8 @@ def _interleave2x2(planes) -> jnp.ndarray:
 
 def _decimate2(x: jnp.ndarray) -> jnp.ndarray:
     """Pick every second pixel (get_by_2_pick_every_second,
-    s_pyramid_build.cu:49-71). Minor-dim strided slices lower to element
-    shuffles (~40 ms on an 8M image, measured); slicing the sublane axis
-    twice with a transpose between costs two relayout passes (~0.1 ms)."""
+    s_pyramid_build.cu:49-71), as two row-axis strided slices with a
+    transpose between."""
     r = x[0::2, :]
     return r.T[0::2, :].T
 
@@ -333,9 +328,8 @@ def _octave0_level0(img_u8: jnp.ndarray, plan: PyramidPlan,
         # (upsample -> dd0 horiz conv -> inc0 vert conv) chain is a
         # polyphase filter bank: four quarter-res planes computed by
         # small convs on the *source* image, assembled by one
-        # interleave. (A naive minor-dim stack/reshape interleave costs
-        # ~44 ms on an 8.3M-pixel frame; rows first + transposes makes
-        # every reshape layout-free: ~1 ms.)
+        # interleave (rows first + transposes keeps every reshape
+        # layout-free).
 
         kxp = _phase_kernels(kx * 255.0)
         kyp = _phase_kernels(ky)
@@ -369,37 +363,9 @@ def _octave0_level0(img_u8: jnp.ndarray, plan: PyramidPlan,
     return _conv1d_valid(out, ky, axis=0)
 
 
-def build_pyramid(img_u8: jnp.ndarray, plan: PyramidPlan,
-                  use_pallas: bool | None = None):
+def build_pyramid(img_u8: jnp.ndarray, plan: PyramidPlan):
     """Full pyramid. Returns (blurs, dogs): tuples over octaves of
-    f32[L, H, W] and f32[L-1, H, W].
-
-    ``use_pallas=True`` runs the per-level blur+DoG as a fused Pallas
-    kernel (ops/pallas/blur.py) — bit-identical to the XLA shift-add
-    path on TPU. The XLA path is the default: measured per-level cost
-    is 0.4 ms vs the kernel's 0.7 ms (XLA fuses the shift-add chain
-    well), and the kernel does not support an outer vmap over images.
-    """
-    blurs = []
-    dogs = []
-    for levels, dog_layers in build_pyramid_octaves(img_u8, plan,
-                                                    use_pallas=use_pallas):
-        blurs.append(jnp.stack(levels))
-        dogs.append(jnp.stack(dog_layers))
-    return tuple(blurs), tuple(dogs)
-
-
-def build_pyramid_octaves(img_u8: jnp.ndarray, plan: PyramidPlan,
-                          use_pallas: bool | None = None):
-    """Per-octave level generation: yields ``(levels, dog_layers)``
-    lists of 2-D arrays per octave. :func:`build_pyramid` stacks them
-    into the dense per-octave arrays; the TPU pipeline instead writes
-    them straight into halo-padded canvases (:func:`assemble_canvas`)
-    so the window-DMA kernels never need a separate padded copy."""
-    from .pallas.blur import blur_and_dog
-
-    if use_pallas is None:
-        use_pallas = False
+    f32[L, H, W] and f32[L-1, H, W]."""
     cfg = plan.config
     total = cfg.total_levels
     # strategy branches mirroring build_pyramid's dispatch
@@ -409,7 +375,7 @@ def build_pyramid_octaves(img_u8: jnp.ndarray, plan: PyramidPlan,
     direct = cfg.scaling_mode == "direct"
     relative_all = cfg.gauss_mode == "vlfeat-relative-all"
     fixed = cfg.gauss_mode in ("fixed9", "fixed15")
-    out = []
+    blurs, dogs = [], []
     prev_ds_level = None
 
     def downscale(prev, oh, ow):
@@ -418,174 +384,16 @@ def build_pyramid_octaves(img_u8: jnp.ndarray, plan: PyramidPlan,
         return _decimate2(prev)[:oh, :ow]
 
     for octv, (oh, ow) in enumerate(plan.dims):
-        if fixed:
+        if fixed and octv == 0:
             # Fixed9/Fixed15 fused-octave semantics
             # (s_pyramid_fixed.cu:202-288): octave 0 builds EVERY level
             # straight from the input with the absolute abs_o0 filters
             # (same fixed-span filter both axes); octaves >0 downscale
             # level 0 then build levels 1..5 from level 0 with abs_oN.
-            # DoG comes from adjacent levels inside the same pass.
-            if octv == 0:
-                levels = [
-                    _octave0_level0(img_u8, plan, kx=plan.abs0_kernels[l],
-                                    ky=plan.abs0_kernels[l])
-                    for l in range(total)]
-            else:
-                if direct:
-                    lvl0 = _octave_lvl0_from_input(img_u8, plan, octv)
-                else:
-                    lvl0 = downscale(prev_ds_level, oh, ow)
-                levels = [lvl0] + [
-                    _sep_blur(lvl0, plan.absN_kernels[l])
-                    for l in range(1, total)]
-            dog_layers = [levels[l + 1] - levels[l] for l in range(total - 1)]
-            out.append((levels, dog_layers))
-            prev_ds_level = levels[total - 3]
-            continue
-
-        if octv == 0:
-            lvl0 = _octave0_level0(img_u8, plan)
-        elif direct:
-            lvl0 = _octave_lvl0_from_input(img_u8, plan, octv)
-        else:
-            lvl0 = downscale(prev_ds_level, oh, ow)
-        if use_pallas == "chain" and not relative_all:
-            # fused octave chain: lvl0 read once per group, levels +
-            # DoGs written from VMEM (ops/pallas/blur.py); group=3
-            # bounds Mosaic compile time per kernel (round-2 finding)
-            from .pallas.blur import octave_blur_chain
-            bl, dg = octave_blur_chain(
-                lvl0, [plan.inc_kernels[lvl] for lvl in range(1, total)],
-                group=3)
-            levels = [lvl0] + bl
-            dog_layers = dg
-        else:
-            levels = [lvl0]
-            dog_layers = []
-            for lvl in range(1, total):
-                if relative_all:
-                    levels.append(_sep_blur(lvl0, plan.absN_kernels[lvl]))
-                    dog_layers.append(levels[-1] - levels[-2])
-                elif use_pallas:
-                    b, d = blur_and_dog(levels[-1], plan.inc_kernels[lvl])
-                    levels.append(b)
-                    dog_layers.append(d)
-                else:
-                    levels.append(_sep_blur(levels[-1],
-                                            plan.inc_kernels[lvl]))
-                    dog_layers.append(levels[-1] - levels[-2])
-        out.append((levels, dog_layers))
-        prev_ds_level = levels[total - 3]
-    return out
-
-
-# ---------------------------------------------------------------------------
-# halo-padded canvases (TPU window-DMA kernel layout)
-# ---------------------------------------------------------------------------
-#
-# The window-DMA kernels (mask stencil, refinement window extractor,
-# orientation and descriptor kernels) read aligned blocks from an
-# octave image that must be larger than (H, W). Padding the dense
-# stacks per consumer cost ~3.5 ms/frame of pure copies at 1080p; the
-# canvases below are written ONCE, straight from the per-level blur
-# outputs (the dynamic-update-slice writes the pipeline already paid
-# for) and shared by every kernel:
-#
-# * gauss canvas  f32[L, Hg, Wg], interior at (0, 0) — consumed by the
-#   orientation/descriptor kernels, which mask out-of-image samples
-#   in-kernel, so the pad region only needs to be finite (zeros).
-# * dog canvas    f32[L-1, Hd, Wd], interior at (DOG_OY, DOG_OX) — the
-#   top/left halo keeps the mask stencil's DMA tiles aligned; border
-#   pixels are forced false in-kernel (they can never be strict
-#   extrema), so the halo needs no edge replication either. The
-#   refinement window extractor reads from the same canvas: its
-#   one-hot neighborhood reads never select out-of-image pixels (the
-#   step policy clamps moves to [1, H-2], s_extrema.cu:258-284), so
-#   zero halo is semantically inert there too.
-
-DOG_OY = 8     # dog-canvas interior row origin (sublane-aligned)
-DOG_OX = 128   # dog-canvas interior col origin (lane-aligned)
-
-
-def gauss_canvas_dims(H: int, W: int) -> tuple:
-    """Same geometry contract as orientation.pad_for_window_kernels:
-    aligned 112x256 descriptor DMA windows must fit below/right of any
-    keypoint."""
-    Hg = max(-(-(H + 64) // 8) * 8, 112)
-    Wg = max(-(-(W + 240) // 128) * 128, 256)
-    return Hg, Wg
-
-
-def dog_canvas_dims(H: int, W: int) -> tuple:
-    """Rows: the mask stencil's grid step i DMAs [i*32, i*32 + 48) and
-    the refinement window extractor needs 24 rows below any candidate;
-    cols: 256 lanes right of any candidate, 128-aligned."""
-    Ho = -(-H // 32) * 32
-    Hd = -(-max(DOG_OY + H + 24, Ho + 16) // 8) * 8
-    Wd = DOG_OX + (-(-(W + 256) // 128) * 128)
-    return Hd, Wd
-
-
-def build_pyramid_canvases(img_u8: jnp.ndarray, plan: PyramidPlan,
-                           into: tuple | None = None,
-                           gbase: int = 0, dbase: int = 0):
-    """Build the halo-padded gauss/DoG canvases with the canvas as the
-    ONLY per-level storage: each blur reads its predecessor as a canvas
-    slice and its output's sole consumer is the in-place canvas update,
-    so no standalone per-level (or per-DoG) array ever materializes.
-
-    The assemble_* path writes every o0 level twice (a standalone
-    f32[2160,3840] the next blur/DoG read, plus the canvas interior) —
-    ~33 MB/level of pure duplicate HBM writes on a front the round-5
-    trace shows is bandwidth-bound (~140 GB/s effective on the
-    fractional slice). Reading layer l-1 while updating layer l of the
-    same buffer is disjoint, which XLA's in-place DUS fusion handles.
-
-    ``into=(gcs, dcs)`` updates existing per-octave canvas lists in
-    place (the frame-batched path's shared [F*L] canvases), writing
-    gauss layers at ``gbase + l`` and DoG layers at ``dbase + l``.
-
-    Strategy branches mirror :func:`build_pyramid_octaves`
-    (s_pyramid_build.cu:460-596, s_pyramid_fixed.cu:202-288);
-    bit-identical values — the canvas interior holds the same floats
-    the standalone levels would.
-    """
-    cfg = plan.config
-    total = cfg.total_levels
-    direct = cfg.scaling_mode == "direct"
-    relative_all = cfg.gauss_mode == "vlfeat-relative-all"
-    fixed = cfg.gauss_mode in ("fixed9", "fixed15")
-
-    def downscale(prev, oh, ow):
-        if cfg.downscale_mode == "interpolate":
-            return _decimate2_interpolate(prev, oh, ow)
-        return _decimate2(prev)[:oh, :ow]
-
-    if into is None:
-        gcs = [jnp.zeros((total,) + gauss_canvas_dims(*d), jnp.float32)
-               for d in plan.dims]
-        dcs = [jnp.zeros((total - 1,) + dog_canvas_dims(*d), jnp.float32)
-               for d in plan.dims]
-    else:
-        gcs, dcs = into
-
-    prev_ds_level = None
-    for octv, (oh, ow) in enumerate(plan.dims):
-
-        def rd(l):
-            return jax.lax.slice(gcs[octv], (gbase + l, 0, 0),
-                                 (gbase + l + 1, oh, ow))[0]
-
-        def put_g(l, arr):
-            gcs[octv] = jax.lax.dynamic_update_slice(
-                gcs[octv], arr[None], (gbase + l, 0, 0))
-
-        if octv == 0 and fixed:
-            # every level straight from the input (abs_o0 filters)
-            for l in range(total):
-                put_g(l, _octave0_level0(img_u8, plan,
-                                         kx=plan.abs0_kernels[l],
-                                         ky=plan.abs0_kernels[l]))
+            levels = [
+                _octave0_level0(img_u8, plan, kx=plan.abs0_kernels[l],
+                                ky=plan.abs0_kernels[l])
+                for l in range(total)]
         else:
             if octv == 0:
                 lvl0 = _octave0_level0(img_u8, plan)
@@ -593,68 +401,16 @@ def build_pyramid_canvases(img_u8: jnp.ndarray, plan: PyramidPlan,
                 lvl0 = _octave_lvl0_from_input(img_u8, plan, octv)
             else:
                 lvl0 = downscale(prev_ds_level, oh, ow)
-            put_g(0, lvl0)
+            levels = [lvl0]
             for lvl in range(1, total):
                 if fixed or relative_all:
-                    cur = _sep_blur(rd(0), plan.absN_kernels[lvl])
+                    levels.append(_sep_blur(lvl0, plan.absN_kernels[lvl]))
                 else:
-                    cur = _sep_blur(rd(lvl - 1), plan.inc_kernels[lvl])
-                put_g(lvl, cur)
-        for lvl in range(total - 1):
-            dog = rd(lvl + 1) - rd(lvl)
-            dcs[octv] = jax.lax.dynamic_update_slice(
-                dcs[octv], dog[None], (dbase + lvl, DOG_OY, DOG_OX))
-        prev_ds_level = rd(total - 3)
-    return gcs, dcs
-
-
-def canvas_direct_enabled() -> bool:
-    """OFF by default: the round-5 same-session A/B
-    (scripts/ab_canvas.py, interleaved reps) measured the canvas-only
-    front at 14.27/14.27 ms/frame vs 14.13/14.13 for the assemble path
-    at 1080p — XLA's multi-output fusion already writes levels into
-    the canvas in place, and the canvas-slice reads fuse worse than
-    standalone-array reads. The builder stays as the measured
-    alternative (and the parity tests keep it honest); opt in with
-    POPSIFT_TPU_CANVAS_DIRECT=1."""
-    import os
-    return os.environ.get("POPSIFT_TPU_CANVAS_DIRECT", "0") == "1"
-
-
-def gauss_atlas_layout(dims, start: int = 2):
-    """Row layout of the small-octave gauss atlas: octaves
-    ``start..n-1``'s halo-padded canvases stacked vertically in ONE
-    [L, Ha, Wa] array. Each segment keeps its own gauss_canvas_dims
-    halo (64 rows / 240 cols of zeros), so window DMAs near a segment
-    edge read that segment's zero halo exactly as they would its own
-    canvas — semantics are bit-identical; only the row origin shifts.
-
-    Why: each small octave's ori/desc kernel launch costs ~60-135 us
-    of fixed overhead against microseconds of real work (round-5
-    trace: the four 256-job _ori_calls each bill 135 us/frame). One
-    launch over the atlas serves them all; the kernels take PER-JOB
-    in-image bounds (params slots 8-10) to keep each segment's border
-    tests exact.
-
-    Returns (row_offsets[n-start], atlas_rows, atlas_width)."""
-    hs = [gauss_canvas_dims(*d)[0] for d in dims[start:]]
-    ws = [gauss_canvas_dims(*d)[1] for d in dims[start:]]
-    offs = np.concatenate([[0], np.cumsum(hs)]).astype(int)
-    return offs[:-1], int(offs[-1]), int(max(ws))
-
-
-def assemble_gauss_canvas(levels, H: int, W: int) -> jnp.ndarray:
-    Hg, Wg = gauss_canvas_dims(H, W)
-    canvas = jnp.zeros((len(levels), Hg, Wg), jnp.float32)
-    for l, lvl in enumerate(levels):
-        canvas = jax.lax.dynamic_update_slice(canvas, lvl[None], (l, 0, 0))
-    return canvas
-
-
-def assemble_dog_canvas(dog_layers, H: int, W: int) -> jnp.ndarray:
-    Hd, Wd = dog_canvas_dims(H, W)
-    canvas = jnp.zeros((len(dog_layers), Hd, Wd), jnp.float32)
-    for l, d in enumerate(dog_layers):
-        canvas = jax.lax.dynamic_update_slice(canvas, d[None],
-                                              (l, DOG_OY, DOG_OX))
-    return canvas
+                    levels.append(_sep_blur(levels[-1],
+                                            plan.inc_kernels[lvl]))
+        # DoG layers from adjacent levels (make_dog, s_pyramid_build.cu:74-92)
+        blur = jnp.stack(levels)
+        blurs.append(blur)
+        dogs.append(blur[1:] - blur[:-1])
+        prev_ds_level = levels[total - 3]
+    return tuple(blurs), tuple(dogs)

@@ -2,7 +2,7 @@
 
 * :mod:`.mesh` — device mesh construction + capability report.
 * :mod:`.batch` — data-parallel batched extraction, ring matching, and
-  block-sharded all-pairs matching over ICI.
+  block-sharded all-pairs matching.
 * :mod:`.spatial` — row-sharded (sequence-parallel analog) pyramid and
   full spatially-sharded extraction with halo exchange.
 """

@@ -4,7 +4,7 @@ This is the capability the reference cannot offer: it processes one image
 at a time through a 2-stage host pipeline (popsift.cpp:171-213). Here a
 batch of images is sharded over a device mesh (``dp`` axis), every device
 extracts its shard with a vmapped pipeline, and cross-image descriptor
-matching moves descriptors — not images — over ICI with ``ppermute``.
+matching moves descriptors — not images — between devices with ``ppermute``.
 """
 
 from __future__ import annotations
@@ -31,17 +31,16 @@ def make_batched_extract_fn(cfg: SiftConfig, height: int, width: int,
     B must be divisible by the mesh size. When ``match_pairs`` is set,
     image i's descriptors are matched against image (i+1) mod B's (a ring
     over the batch — the SfM-frontend sequential-pair workload), with the
-    neighbor shard's descriptors fetched over ICI via ppermute.
+    neighbor shard's descriptors fetched via ppermute.
     """
     plan = build_extract_plan(cfg, height, width,
                               octave_caps=octave_caps)
     n = mesh.shape[axis_name]
 
     def local_fn(imgs):
-        # scan (not vmap) over the local shard: the Pallas kernels and
-        # patch gathers do not support a vmapped batch dim (and vmapped
-        # gathers trigger batch-minor relayouts); DP throughput comes
-        # from the mesh axis, per-device frames run back-to-back.
+        # scan over the local shard: DP throughput comes from the mesh
+        # axis, per-device frames run back-to-back at one frame's
+        # memory footprint.
         def body(_, im):
             return 0, extract(im, plan, desc_chunk=desc_chunk)
         _, feats = jax.lax.scan(body, 0, imgs)
@@ -63,10 +62,13 @@ def make_batched_extract_fn(cfg: SiftConfig, height: int, width: int,
         return feats, res
 
     spec = P(axis_name)
+    # check_vma=False: the GPU descriptor kernel's body cannot carry the
+    # pvary casts that varying-axis checking inserts (no Triton lowering)
     mapped = shard_map(
         local_fn, mesh=mesh,
         in_specs=(spec,),
-        out_specs=(spec, spec if match_pairs else None))
+        out_specs=(spec, spec if match_pairs else None),
+        check_vma=False)
     return jax.jit(mapped)
 
 
@@ -81,11 +83,11 @@ def make_allpairs_match_fn(mesh: Mesh, axis_name: str = "dp",
     diagonal is a self-match and should be ignored by the caller).
 
     Systolic ring: each device keeps its left block resident and streams
-    the right descriptor blocks around the ring over ICI
+    the right descriptor blocks around the ring
     (``lax.ppermute``), matching B x B image pairs per step — N^2/n
     pairs per device over n steps, with only one extra block of
     descriptors in flight per device at any time. The per-pair kernel is
-    the tiled MXU matcher (ops/matching.py::match_descriptors).
+    the tiled matmul matcher (ops/matching.py::match_descriptors).
     """
     from ..ops.matching import RATIO, match_descriptors
     if ratio is None:

@@ -2,7 +2,7 @@
 
 The reference is strictly single-GPU (SURVEY.md §2.7: no NCCL/MPI
 anywhere); all multi-chip structure in this framework is new, built on
-``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives over ICI.
+``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Spatial (sequence-parallel analog) sharding: very large frames split
-across devices by rows, with halo exchange over ICI.
+across devices by rows, with halo exchange between neighbours.
 
 SURVEY.md section 2.7: the reference handles large inputs only by
-downsampling (sift_conf.h:179-184); the TPU framework shards the image
+downsampling (sift_conf.h:179-184); this framework shards the image
 axis instead — the moral equivalent of ring attention for stencil ops.
 Each device holds a contiguous row band; every separable blur exchanges
 a halo of boundary rows with its mesh neighbors via ``lax.ppermute``
@@ -58,7 +58,7 @@ def _sharded_blur(x: jnp.ndarray, kernel: np.ndarray, axis_name: str):
     pad = (kernel.shape[0] - 1) // 2
     xh = jnp.pad(x, ((0, 0), (pad, pad)), mode="edge")
     xh = _conv1d_valid(xh, kernel, axis=1)       # horizontal: no halo
-    xh = _exchange_halo(xh, pad, axis_name)      # vertical halo over ICI
+    xh = _exchange_halo(xh, pad, axis_name)      # vertical halo exchange
     return _conv1d_valid(xh, kernel, axis=0)
 
 

@@ -1,6 +1,6 @@
 """End-to-end SIFT extraction pipeline.
 
-The TPU counterpart of the reference's stage-2 worker
+The counterpart of the reference's stage-2 worker
 (``extractDownloadLoop`` -> Pyramid::step1/step2/get_descriptors,
 /root/reference/src/popsift/popsift.cpp:182-213,
 sift_pyramid.cu:226-321): one jitted XLA program that takes a grayscale
@@ -27,12 +27,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .config import ORIENTATION_MAX_COUNT, SiftConfig
-from .ops.descriptors import (
-    compute_descriptors,
-    make_descriptor_jobs,
-    normalize_descriptors,
-)
+from .config import SiftConfig
+from .ops.descriptors import compute_descriptors, normalize_descriptors
 from .ops.extrema import detect_extrema  # noqa: F401 (public surface)
 from .ops.gridfilter import maybe_grid_filter
 from .ops.orientation import OctaveOrientations, assign_orientations  # noqa: F401
@@ -118,164 +114,57 @@ def build_extract_plan(config: SiftConfig, height: int, width: int,
 
 def extract(img_u8: jnp.ndarray, plan: ExtractPlan,
             desc_chunk: int = 1024,
-            _stage: str | None = None) -> SiftFeatures:
+            desc_impl: str | None = None) -> SiftFeatures:
     """Run the full pipeline on one image. Jit-compatible.
 
-    ``_stage`` is a diagnostics-only early-exit (same phases as
-    ``extract_batch``: "front", "cands", "refine", "grid", "orient") —
-    used by scripts/stage_slope_batch.py --single to re-baseline the
-    per-stage cost table on hardware.
-
     Keypoint-stage math is batched ACROSS octaves: only the phases that
-    read octave-shaped images (candidate mask/compact/window DMA,
-    orientation-histogram windows, descriptor windows) run per octave;
-    the 5-iteration refinement, orientation peak tail, descriptor
-    normalization and output assembly each run once on the concatenated
-    capacity-padded lists. The per-octave unrolled form was pure
-    op-dispatch overhead on TPU (9 octaves x ~hundreds of small fused
-    ops); the reference instead overlaps per-octave kernels on CUDA
-    streams (sift_octave.h:60-64) — batching is the XLA-native
-    equivalent.
+    read octave-shaped images (candidate mask, compaction and window
+    reads, orientation-histogram windows, descriptor windows) run per
+    octave; the 5-iteration refinement, orientation peak tail,
+    descriptor normalization and output assembly each run once on the
+    concatenated capacity-padded lists. The reference instead overlaps
+    per-octave kernels on CUDA streams (sift_octave.h:60-64); one
+    batched program is the XLA equivalent.
+
+    ``desc_impl`` is passed to :func:`compute_descriptors` (``None``
+    picks by platform; scripts/profile_stages.py forces each form for
+    the descriptor A/B).
     """
     cfg = plan.config
     from .ops.extrema import CandidateSet, collect_candidates, \
         refine_candidates
-    from .ops.orientation import (max_ori_radius, orientation_histograms,
+    from .ops.orientation import (orientation_histograms,
                                   orientations_from_histograms)
-    from .ops.descriptors import loop_patch_radius
-    from .ops.pallas.extrema_mask import mask_pallas_available
-    from .ops.pallas.orient import ori_pallas_available
-    from .ops.pallas.window import window_pallas_available
+    from .ops.descriptors import DescriptorJobs, \
+        make_descriptor_jobs_segmented
 
     caps = plan.ext_caps
     dims = plan.pyramid.dims
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
     cat = lambda xs: jnp.concatenate(xs, axis=0)
 
-    # On TPU every image-reading stage is a window-DMA Pallas kernel,
-    # and all of them share TWO halo-padded canvases per octave written
-    # straight from the blur outputs (ops/pyramid.py canvas section) —
-    # no dense unpadded stacks and no per-consumer pad/concat copies
-    # (those were ~3.5 ms/frame at 1080p).
-    use_canvas = (mask_pallas_available() and window_pallas_available()
-                  and ori_pallas_available()
-                  and max_ori_radius(cfg) <= 26
-                  and (cfg.desc_mode != "loop"
-                       or loop_patch_radius(cfg) <= 51))
+    blurs, dogs = build_pyramid(img_u8, plan.pyramid)
+    # phase 1a: per-octave candidate collection (Pyramid::find_extrema)
+    cands = [collect_candidates(dog, cfg, caps[o])
+             for o, dog in enumerate(dogs)]
 
-    if use_canvas:
-        from .ops.pyramid import (assemble_dog_canvas,
-                                  assemble_gauss_canvas,
-                                  build_pyramid_canvases,
-                                  build_pyramid_octaves,
-                                  canvas_direct_enabled,
-                                  gauss_atlas_layout)
-        # non-loop descriptor variants read the dense stack in XLA
-        need_stack = cfg.desc_mode != "loop"
-        # opt-in: octaves >= A0 share ONE vertically-stacked gauss
-        # atlas so the ori/desc kernels launch once for all of them
-        # (gauss_atlas_layout). OFF by default: the round-5 on-chip A/B
-        # (scripts/ab_atlas.py: atlas 14.75/14.68 vs per-octave
-        # 14.28/14.28 ms/frame, counts identical) measured the saved
-        # per-launch overhead (~135 us x ~12 small launches) MORE than
-        # given back by the atlas assembly (no pad-trick fusion for the
-        # zero canvas + wider-row DUS writes). Kept as the
-        # fewer-launches option for octave-rich configs.
-        import os
-        A0 = 2
-        use_atlas = (not need_stack) and len(dims) > A0 + 1 \
-            and os.environ.get("POPSIFT_TPU_ATLAS", "0") == "1"
-        atlas = None
-        if use_atlas:
-            arow, Ha, Wa = gauss_atlas_layout(dims, A0)
-        if not need_stack and canvas_direct_enabled():
-            # canvas-only storage: no standalone per-level arrays
-            gaussc, dogc = build_pyramid_canvases(img_u8, plan.pyramid)
-            blurs = [None] * len(dims)
-            use_atlas = False
-        else:
-            octs = build_pyramid_octaves(img_u8, plan.pyramid)
-            if use_atlas:
-                L = cfg.total_levels
-                atlas = jnp.zeros((L, Ha, Wa), jnp.float32)
-                gaussc = []
-                for o, (lv, _) in enumerate(octs):
-                    if o < A0:
-                        gaussc.append(assemble_gauss_canvas(
-                            lv, *dims[o]))
-                    else:
-                        for l, lvl in enumerate(lv):
-                            atlas = jax.lax.dynamic_update_slice(
-                                atlas, lvl[None],
-                                (l, int(arow[o - A0]), 0))
-                        gaussc.append(None)
-            else:
-                gaussc = [assemble_gauss_canvas(lv, *dims[o])
-                          for o, (lv, _) in enumerate(octs)]
-            dogc = [assemble_dog_canvas(dg, *dims[o])
-                    for o, (_, dg) in enumerate(octs)]
-            blurs = [jnp.stack(lv) if need_stack else None
-                     for lv, _ in octs]
-        if _stage == "front":
-            return gaussc, dogc
-        padded = gaussc
-        from .ops.pallas.refine import refine_pallas_available
-        fused_refine = refine_pallas_available()
-        if fused_refine:
-            # fused collect+refine: the window kernel refines in VMEM
-            # and emits 13 scalars/candidate instead of a 4 KB patch
-            # (the reference refines in registers the same way, one
-            # thread per extremum, s_extrema.cu:359-460); the accept
-            # tests still run once, batched across octaves
-            from .ops.extrema import collect_refined
-            cands = [collect_refined(cfg, caps[o], dogc[o], dims[o])
-                     for o in range(len(caps))]
-        else:
-            cands = [collect_candidates(None, cfg, caps[o],
-                                        canvas=dogc[o], dims=dims[o])
-                     for o in range(len(caps))]
-    else:
-        fused_refine = False
-        use_atlas = False
-        blurs, dogs = build_pyramid(img_u8, plan.pyramid)
-        if _stage == "front":
-            return blurs, dogs
-        # phase 1a: per-octave candidate collection (Pyramid::find_extrema)
-        cands = [collect_candidates(dog, cfg, caps[o])
-                 for o, dog in enumerate(dogs)]
-    if _stage == "cands":
-        return cands
-
-    # phase 1b: one batched refinement (or, on the fused path, just the
-    # batched accept tests) over all octaves' candidates, each row
-    # carrying its own octave's dimensions
+    # phase 1b: one batched refinement over all octaves' candidates,
+    # each row carrying its own octave's dimensions
     octv_row = np.concatenate(
         [np.full(caps[o], o, np.int32) for o in range(len(caps))])
     w_row = np.concatenate(
-        [np.full(caps[o], ow, np.int32)
-         for o, (oh, ow) in enumerate(plan.pyramid.dims)])
+        [np.full(caps[o], ow, np.int32) for o, (oh, ow) in enumerate(dims)])
     h_row = np.concatenate(
-        [np.full(caps[o], oh, np.int32)
-         for o, (oh, ow) in enumerate(plan.pyramid.dims)])
-    if fused_refine:
-        from .ops.extrema import finalize_refined
-        g = finalize_refined(
-            cat([r.vals for r in cands]),
-            cat([r.valid for r in cands]), cfg, w_row, h_row,
-            jnp.stack([r.n_found for r in cands]).sum(),
-            jnp.stack([r.n_dropped for r in cands]).sum())
-    else:
-        merged = CandidateSet(
-            patches=cat([c.patches for c in cands]),
-            x0=cat([c.x0 for c in cands]),
-            y0=cat([c.y0 for c in cands]),
-            z0=cat([c.z0 for c in cands]),
-            valid=cat([c.valid for c in cands]),
-            n_found=jnp.stack([c.n_found for c in cands]).sum(),
-            n_dropped=jnp.stack([c.n_dropped for c in cands]).sum())
-        g = refine_candidates(merged, cfg, w_row, h_row)
-    if _stage == "refine":
-        return g
+        [np.full(caps[o], oh, np.int32) for o, (oh, ow) in enumerate(dims)])
+    merged = CandidateSet(
+        patches=cat([c.patches for c in cands]),
+        x0=cat([c.x0 for c in cands]),
+        y0=cat([c.y0 for c in cands]),
+        z0=cat([c.z0 for c in cands]),
+        valid=cat([c.valid for c in cands]),
+        n_found=jnp.stack([c.n_found for c in cands]).sum(),
+        n_dropped=jnp.stack([c.n_dropped for c in cands]).sum())
+    g = refine_candidates(merged, cfg, w_row, h_row)
 
     # phase 2: global grid-budget filter before the expensive stages
     # (extrema_filter_grid runs before orientation, s_orientation.cu:353-367)
@@ -285,69 +174,26 @@ def extract(img_u8: jnp.ndarray, plan: ExtractPlan,
     if cfg.filter_max_extrema > 0:
         gvalid = maybe_grid_filter(g.cell, g.sigma * scale_row, gvalid,
                                    cfg)
-    if _stage == "grid":
-        return gvalid
 
     # phase 3a: per-octave orientation histograms (window reads), one
-    # batched peak tail. The padded octave image is built ONCE and
-    # shared by the orientation and descriptor window-DMA kernels.
+    # batched peak tail
     def oct_slice(a, o):
         return a[offs[o]:offs[o + 1]]
 
-    if not use_canvas:
-        from .ops.orientation import pad_for_window_kernels
-        share_pad = ori_pallas_available()
-        padded = [pad_for_window_kernels(blur, *dims[o])
-                  if share_pad else None
-                  for o, blur in enumerate(blurs)]
-
-    if use_atlas:
-        # per-row atlas segment geometry for octaves >= A0: the kernels
-        # keep ALL math in octave-local coordinates (bit-identical to
-        # per-octave launches); only the DMA row address adds yoff
-        from .ops.pyramid import gauss_canvas_dims
-
-        def _seg_arrays(row_counts):
-            cols = [[], [], [], [], []]
-            for o in range(A0, len(caps)):
-                n = row_counts[o]
-                hg, wg = gauss_canvas_dims(*dims[o])
-                for c, v in zip(cols, (arow[o - A0], hg, wg,
-                                       dims[o][0], dims[o][1])):
-                    c.append(np.full(n, v, np.int32))
-            return tuple(jnp.asarray(np.concatenate(c)) for c in cols)
-
     hists = []
-    n_per_oct = A0 if use_atlas else len(blurs)
-    for octv in range(n_per_oct):
+    for octv, blur in enumerate(blurs):
         ext_o = g._replace(
             x=oct_slice(g.x, octv), y=oct_slice(g.y, octv),
             s=oct_slice(g.s, octv), level=oct_slice(g.level, octv),
             sigma=oct_slice(g.sigma, octv), cell=oct_slice(g.cell, octv),
             valid=oct_slice(gvalid, octv))
-        hists.append(orientation_histograms(blurs[octv], ext_o, cfg,
-                                            padded=padded[octv],
-                                            dims=dims[octv]))
-    if use_atlas:
-        asl = slice(int(offs[A0]), int(offs[-1]))
-        ext_a = g._replace(
-            x=g.x[asl], y=g.y[asl], s=g.s[asl],
-            level=g.level[asl], sigma=g.sigma[asl], cell=g.cell[asl],
-            valid=gvalid[asl])
-        hists.append(orientation_histograms(None, ext_a, cfg,
-                                            padded=atlas, dims=(Ha, Wa),
-                                            seg=_seg_arrays(caps)))
+        hists.append(orientation_histograms(blur, ext_o, cfg))
     oris = orientations_from_histograms(cat(hists), gvalid,
                                         smoothing=cfg.ori_smoothing)
-    if _stage == "orient":
-        return oris
 
     # phase 3b: ONE segmented job build for all octaves (one sort + one
-    # gather per field instead of 9 sorts + ~54 gathers), then the
-    # per-octave window-reading kernels; normalization and masking
-    # batched at the end
-    from .ops.descriptors import DescriptorJobs, \
-        make_descriptor_jobs_segmented
+    # gather per field), then the per-octave window-reading descriptor
+    # stage; normalization and masking batched at the end
     segs = tuple((int(offs[o]), caps[o], plan.job_caps[o])
                  for o in range(len(caps)))
     jobs_all, counts = make_descriptor_jobs_segmented(
@@ -355,33 +201,18 @@ def extract(img_u8: jnp.ndarray, plan: ExtractPlan,
     jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
 
     raw_descs, job_kps, job_valids = [], [], []
-    for octv in range(n_per_oct):
+    for octv, blur in enumerate(blurs):
         jsl = slice(int(jobs_off[octv]), int(jobs_off[octv + 1]))
         jobs = DescriptorJobs(
             x=jobs_all.x[jsl], y=jobs_all.y[jsl],
             sigma=jobs_all.sigma[jsl], level=jobs_all.level[jsl],
             ang=jobs_all.ang[jsl], kp_index=jobs_all.kp_index[jsl],
             valid=jobs_all.valid[jsl], count=counts[octv])
-        raw_descs.append(compute_descriptors(blurs[octv], jobs, cfg,
+        raw_descs.append(compute_descriptors(blur, jobs, cfg,
                                              chunk=desc_chunk,
-                                             padded=padded[octv],
-                                             dims=dims[octv]))
-    if use_atlas:
-        jsl = slice(int(jobs_off[A0]), int(jobs_off[-1]))
-        jobs_a = DescriptorJobs(
-            x=jobs_all.x[jsl], y=jobs_all.y[jsl],
-            sigma=jobs_all.sigma[jsl], level=jobs_all.level[jsl],
-            ang=jobs_all.ang[jsl], kp_index=jobs_all.kp_index[jsl],
-            valid=jobs_all.valid[jsl],
-            count=jnp.int32(int(jobs_off[-1]) - int(jobs_off[A0])))
-        raw_descs.append(compute_descriptors(None, jobs_a, cfg,
-                                             chunk=desc_chunk,
-                                             padded=atlas, dims=(Ha, Wa),
-                                             seg=_seg_arrays(plan.job_caps)))
-    for octv in range(len(caps)):
-        jsl = slice(int(jobs_off[octv]), int(jobs_off[octv + 1]))
-        job_kps.append(jobs_all.kp_index[jsl] + offs[octv])
-        job_valids.append(jobs_all.valid[jsl])
+                                             impl=desc_impl))
+        job_kps.append(jobs.kp_index + offs[octv])
+        job_valids.append(jobs.valid)
 
     desc_valid = cat(job_valids)
     desc = normalize_descriptors(cat(raw_descs), cfg)
@@ -407,350 +238,14 @@ def extract(img_u8: jnp.ndarray, plan: ExtractPlan,
 
 
 def extract_batch(imgs_u8: jnp.ndarray, plan: ExtractPlan,
-                  desc_chunk: int = 1024, front_mode: str = "unroll",
-                  _stage: str | None = None) -> SiftFeatures:
-    """Frame-batched extraction: one XLA program for F frames, every
-    output gaining a leading [F] axis.
-
-    Per-frame device time at 1080p is dominated by ~4k small XLA ops
-    (compaction/refinement/bookkeeping at a few us each) whose fixed
-    cost does not scale with batch; batching F frames amortizes it.
-    The Pallas window-DMA kernels run ONCE for all F frames by stacking
-    the per-frame canvases on the layer axis ([F*L, Hp, Wp]) and
-    offsetting each job's layer index by f*L — the frame becomes part
-    of the level addressing, so the kernels need no batch semantics.
-    The reference gets cross-frame parallelism from multiple SiftJobs
-    on CUDA streams (popsift.cpp:182-213); one batched program is the
-    XLA-native equivalent.
-
-    ``front_mode`` selects how the per-frame pyramid front is lowered:
-    ``"unroll"`` (default; the per-frame front unrolled F times, each
-    frame writing its levels straight into the shared [F*L] canvases —
-    avoids any vmap-induced batched-op relayouts), ``"vmap"`` (one
-    batched program over frames), or ``"scan"`` (lax.scan over frames
-    with the SAME per-frame body the single-frame path runs — canvases
-    stack on the scan output axis and the front is traced once instead
-    of F times). Measured at 1080p F=8 on TPU v5e (round 4):
-    unroll 14.49 ms/frame, scan 17.09, vmap ~27 (the BENCH_r03 2x
-    regression — vmapped convs/interleaves relayout badly); the
-    single-frame scan path is 13.7 ms/frame, so batching is
-    count-parity-equal but does NOT beat per-frame scan dispatch.
-
-    ``_stage`` is a diagnostics-only early-exit: return the named
-    phase's intermediate pytree ("front", "cands", "refine", "grid",
-    "orient") instead of running the full pipeline — used by
-    scripts/stage_slope_batch.py to localize regressions on hardware.
-    """
-    cfg = plan.config
-    F = imgs_u8.shape[0]
-    from .ops.descriptors import loop_patch_radius
-    from .ops.orientation import (max_ori_radius, orientation_histograms,
-                                  orientations_from_histograms)
-    from .ops.pallas.extrema_mask import mask_pallas_available
-    from .ops.pallas.orient import ori_pallas_available
-    from .ops.pallas.window import window_pallas_available
-
-    use_canvas = (mask_pallas_available() and window_pallas_available()
-                  and ori_pallas_available()
-                  and max_ori_radius(cfg) <= 26
-                  and cfg.desc_mode == "loop"
-                  and loop_patch_radius(cfg) <= 51)
-    if not use_canvas:
-        return jax.vmap(
-            lambda im: extract(im, plan, desc_chunk=desc_chunk))(imgs_u8)
-
-    # octaves >= A0 share one stacked gauss atlas (see extract)
-    import os
-    from .ops.pyramid import gauss_atlas_layout, gauss_canvas_dims
-    A0 = 2
-    use_atlas = len(plan.pyramid.dims) > A0 + 1 \
-        and os.environ.get("POPSIFT_TPU_ATLAS", "0") == "1"
-    if use_atlas:
-        arow, Ha, Wa = gauss_atlas_layout(plan.pyramid.dims, A0)
-
-    from .ops.extrema import (CandidateSet, collect_candidates_batched,
-                              refine_candidates)
-    from .ops.pyramid import (assemble_dog_canvas, assemble_gauss_canvas,
-                              build_pyramid_octaves)
-
-    caps = plan.ext_caps
-    dims = plan.pyramid.dims
-    L = cfg.total_levels
-    n_oct = len(dims)
-    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
-    Ktot = int(offs[-1])
-
-    if front_mode == "unroll":
-        # per-frame front, unrolled: each frame's blur/DoG levels are
-        # written straight into the shared [F*L, Hp, Wp] canvases (the
-        # same dynamic-update-slice writes the single-frame path pays),
-        # so no vmapped conv/interleave/transpose ever exists in the
-        # program — only the layer index carries the frame.
-        from .ops.pyramid import (DOG_OX, DOG_OY, build_pyramid_canvases,
-                                  canvas_direct_enabled, dog_canvas_dims)
-        if canvas_direct_enabled():
-            use_atlas = False
-        gc2 = [None if (use_atlas and o >= A0) else
-               jnp.zeros((F * L,) + gauss_canvas_dims(*dims[o]),
-                         jnp.float32) for o in range(len(dims))]
-        dc2 = [jnp.zeros((F * (L - 1),) + dog_canvas_dims(*dims[o]),
-                         jnp.float32) for o in range(len(dims))]
-        gatlas = (jnp.zeros((F * L, Ha, Wa), jnp.float32)
-                  if use_atlas else None)
-        if canvas_direct_enabled():
-            # canvas-only storage (see build_pyramid_canvases): each
-            # frame's layers land at gbase=f*L / dbase=f*(L-1)
-            for f in range(F):
-                build_pyramid_canvases(imgs_u8[f], plan.pyramid,
-                                       into=(gc2, dc2), gbase=f * L,
-                                       dbase=f * (L - 1))
-        else:
-            for f in range(F):
-                octs = build_pyramid_octaves(imgs_u8[f], plan.pyramid)
-                for o, (lv, dg) in enumerate(octs):
-                    for l, lvl in enumerate(lv):
-                        if use_atlas and o >= A0:
-                            gatlas = jax.lax.dynamic_update_slice(
-                                gatlas, lvl[None],
-                                (f * L + l, int(arow[o - A0]), 0))
-                        else:
-                            gc2[o] = jax.lax.dynamic_update_slice(
-                                gc2[o], lvl[None], (f * L + l, 0, 0))
-                    for l, d in enumerate(dg):
-                        dc2[o] = jax.lax.dynamic_update_slice(
-                            dc2[o], d[None],
-                            (f * (L - 1) + l, DOG_OY, DOG_OX))
-    else:
-        use_atlas = False
-        def front(im):
-            octs = build_pyramid_octaves(im, plan.pyramid)
-            gs = tuple(assemble_gauss_canvas(lv, *dims[o])
-                       for o, (lv, _) in enumerate(octs))
-            ds = tuple(assemble_dog_canvas(dg, *dims[o])
-                       for o, (_, dg) in enumerate(octs))
-            return gs, ds
-
-        if front_mode == "scan":
-            _, (gaussc, dogc) = jax.lax.scan(
-                lambda c, im: (c, front(im)), 0, imgs_u8)
-        else:
-            gaussc, dogc = jax.vmap(front)(imgs_u8)
-        # frames stacked on the layer axis: [F,L,Hp,Wp] -> [F*L,Hp,Wp]
-        gc2 = [g.reshape(F * L, g.shape[2], g.shape[3]) for g in gaussc]
-        dc2 = [d.reshape(F * (L - 1), d.shape[2], d.shape[3])
-               for d in dogc]
-    if _stage == "front":
-        return gc2, dc2
-
-    # phase 1a: one mask + fused refine-window launch per octave for
-    # all F frames
-    from .ops.extrema import collect_refined_batched, finalize_refined
-    from .ops.pallas.refine import refine_pallas_available
-    fused_refine = refine_pallas_available()
-    if fused_refine:
-        cands = [collect_refined_batched(dc2[o], F, cfg, caps[o],
-                                         dims[o])
-                 for o in range(n_oct)]
-    else:
-        cands = [collect_candidates_batched(dc2[o], F, cfg, caps[o],
-                                            dims[o])
-                 for o in range(n_oct)]
-    if _stage == "cands":
-        return cands
-
-    # phase 1b: one refinement (fused: accept tests only) over all
-    # frames' and octaves' candidates
-    octv_row = np.concatenate(
-        [np.full(caps[o], o, np.int32) for o in range(n_oct)])
-    w_row = np.concatenate(
-        [np.full(caps[o], ow, np.int32)
-         for o, (oh, ow) in enumerate(dims)])
-    h_row = np.concatenate(
-        [np.full(caps[o], oh, np.int32)
-         for o, (oh, ow) in enumerate(dims)])
-    cat1 = lambda xs: jnp.concatenate(xs, axis=1)       # [F, Ktot]
-    fl = lambda a: a.reshape((F * Ktot,) + a.shape[2:])
-    wt = np.tile(w_row, F)
-    ht = np.tile(h_row, F)
-    if fused_refine:
-        vals = jnp.concatenate(
-            [r.vals.reshape(F, caps[o], r.vals.shape[-1])
-             for o, r in enumerate(cands)], axis=1).reshape(
-                 F * Ktot, cands[0].vals.shape[-1])
-        g = finalize_refined(
-            vals, fl(cat1([r.valid for r in cands])), cfg, wt, ht,
-            jnp.stack([r.n_found for r in cands], axis=1).sum(),
-            jnp.stack([r.n_dropped for r in cands], axis=1).sum())
-    else:
-        merged = CandidateSet(
-            patches=jnp.concatenate(
-                [c.patches.reshape((F, caps[o]) + c.patches.shape[1:])
-                 for o, c in enumerate(cands)], axis=1).reshape(
-                     (F * Ktot,) + cands[0].patches.shape[1:]),
-            x0=fl(cat1([c.x0 for c in cands])),
-            y0=fl(cat1([c.y0 for c in cands])),
-            z0=fl(cat1([c.z0 for c in cands])),
-            valid=fl(cat1([c.valid for c in cands])),
-            n_found=jnp.stack([c.n_found for c in cands],
-                              axis=1).sum(),
-            n_dropped=jnp.stack([c.n_dropped for c in cands],
-                                axis=1).sum())
-        g = refine_candidates(merged, cfg, wt, ht)
-    if _stage == "refine":
-        return g
-
-    # phase 2: per-frame grid budget
-    scale_row = np.exp2(octv_row.astype(np.float32)
-                        - np.float32(cfg.upscale_factor))
-    gvalid = g.valid
-    if cfg.filter_max_extrema > 0:
-        gvalid = jax.vmap(
-            lambda c, s, v: maybe_grid_filter(c, s, v, cfg))(
-            g.cell.reshape(F, Ktot),
-            (g.sigma * jnp.tile(jnp.asarray(scale_row), F)).reshape(
-                F, Ktot),
-            gvalid.reshape(F, Ktot)).reshape(F * Ktot)
-    if _stage == "grid":
-        return g, gvalid
-
-    # per-octave views [F, cap_o] with kernel-level addressing f*L + lv
-    frame_base = jnp.repeat(jnp.arange(F, dtype=jnp.int32), Ktot) * L
-
-    def oct_flat(a, o):
-        return a.reshape(F, Ktot)[:, offs[o]:offs[o + 1]].reshape(-1)
-
-    def ext_for(o, valid):
-        return g._replace(
-            x=oct_flat(g.x, o), y=oct_flat(g.y, o), s=oct_flat(g.s, o),
-            level=oct_flat(g.level + frame_base, o),
-            sigma=oct_flat(g.sigma, o), cell=oct_flat(g.cell, o),
-            valid=oct_flat(valid, o),
-            n_candidates=jnp.int32(F * caps[o]))
-
-    # phase 3a: one orientation-histogram launch set per big octave +
-    # ONE launch for the whole small-octave atlas
-    if use_atlas:
-        def _seg_arrays_b(per_oct_caps):
-            cols = [[], [], [], [], []]
-            for o in range(A0, n_oct):
-                n = F * per_oct_caps[o]
-                hg, wg = gauss_canvas_dims(*dims[o])
-                for c, v in zip(cols, (arow[o - A0], hg, wg,
-                                       dims[o][0], dims[o][1])):
-                    c.append(np.full(n, v, np.int32))
-            return tuple(jnp.asarray(np.concatenate(c)) for c in cols)
-
-        def _cat_ext(valid):
-            f = lambda a: jnp.concatenate(
-                [oct_flat(a, o) for o in range(A0, n_oct)])
-            return g._replace(
-                x=f(g.x), y=f(g.y), s=f(g.s),
-                level=f(g.level + frame_base), sigma=f(g.sigma),
-                cell=f(g.cell), valid=f(valid),
-                n_candidates=jnp.int32(F * sum(caps[A0:])))
-
-    hists = []
-    for octv in range(A0 if use_atlas else n_oct):
-        hists.append(orientation_histograms(
-            None, ext_for(octv, gvalid), cfg, padded=gc2[octv],
-            dims=dims[octv]))
-    if use_atlas:
-        h_at = orientation_histograms(
-            None, _cat_ext(gvalid), cfg, padded=gatlas, dims=(Ha, Wa),
-            seg=_seg_arrays_b(caps))
-        aoff = np.concatenate(
-            [[0], np.cumsum([F * caps[o]
-                             for o in range(A0, n_oct)])]).astype(int)
-        hists += [h_at[int(aoff[k]):int(aoff[k + 1])]
-                  for k in range(n_oct - A0)]
-    hist = jnp.concatenate(
-        [h.reshape(F, caps[o], -1) for o, h in enumerate(hists)],
-        axis=1).reshape(F * Ktot, -1)
-    oris = orientations_from_histograms(hist, gvalid,
-                                        smoothing=cfg.ori_smoothing)
-    if _stage == "orient":
-        return oris
-
-    # phase 3b: ONE segmented job build over all (octave, frame)
-    # segments (one sort + one gather per field instead of per-octave
-    # vmapped builds), then the per-octave kernels on all frames at once
-    from .ops.descriptors import DescriptorJobs, \
-        make_descriptor_jobs_segmented
-    jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
-    Jtot = int(jobs_off[-1])
-    segs, lev_offs = [], []
-    for octv in range(n_oct):
-        for f in range(F):
-            segs.append((f * Ktot + int(offs[octv]), caps[octv],
-                         plan.job_caps[octv]))
-            lev_offs.append(f * L)
-    jobs_all, seg_counts = make_descriptor_jobs_segmented(
-        g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid,
-        tuple(segs), level_offsets=tuple(lev_offs))
-
-    raw_descs, job_kps, job_valids = [], [], []
-    for octv in range(A0 if use_atlas else n_oct):
-        jcap = plan.job_caps[octv]
-        base = int(jobs_off[octv]) * F
-        jsl = slice(base, base + F * jcap)
-        jobs_flat = DescriptorJobs(
-            x=jobs_all.x[jsl], y=jobs_all.y[jsl],
-            sigma=jobs_all.sigma[jsl], level=jobs_all.level[jsl],
-            ang=jobs_all.ang[jsl], kp_index=jobs_all.kp_index[jsl],
-            valid=jobs_all.valid[jsl], count=jnp.int32(F * jcap))
-        raw = compute_descriptors(None, jobs_flat, cfg, chunk=desc_chunk,
-                                  padded=gc2[octv], dims=dims[octv])
-        raw_descs.append(raw.reshape(F, jcap, 128))
-    if use_atlas:
-        base = int(jobs_off[A0]) * F
-        jsl = slice(base, int(jobs_off[-1]) * F)
-        jobs_a = DescriptorJobs(
-            x=jobs_all.x[jsl], y=jobs_all.y[jsl],
-            sigma=jobs_all.sigma[jsl], level=jobs_all.level[jsl],
-            ang=jobs_all.ang[jsl], kp_index=jobs_all.kp_index[jsl],
-            valid=jobs_all.valid[jsl],
-            count=jnp.int32(F * (int(jobs_off[-1]) - int(jobs_off[A0]))))
-        raw_a = compute_descriptors(None, jobs_a, cfg, chunk=desc_chunk,
-                                    padded=gatlas, dims=(Ha, Wa),
-                                    seg=_seg_arrays_b(plan.job_caps))
-        joff2 = 0
-        for octv in range(A0, n_oct):
-            jcap = plan.job_caps[octv]
-            raw_descs.append(
-                raw_a[joff2:joff2 + F * jcap].reshape(F, jcap, 128))
-            joff2 += F * jcap
-    for octv in range(n_oct):
-        jcap = plan.job_caps[octv]
-        base = int(jobs_off[octv]) * F
-        jsl = slice(base, base + F * jcap)
-        job_kps.append(jobs_all.kp_index[jsl].reshape(F, jcap)
-                       + offs[octv])
-        job_valids.append(jobs_all.valid[jsl].reshape(F, jcap))
-
-    desc_valid = jnp.concatenate(job_valids, axis=1)      # [F, Jtot]
-    desc = normalize_descriptors(
-        jnp.concatenate(raw_descs, axis=1).reshape(F * Jtot, 128), cfg)
-    desc = jnp.where(desc_valid.reshape(-1)[:, None], desc, 0.0)
-
-    sr = jnp.asarray(scale_row)
-    return SiftFeatures(
-        x=(g.x * jnp.tile(sr, F)).reshape(F, Ktot),
-        y=(g.y * jnp.tile(sr, F)).reshape(F, Ktot),
-        sigma=(g.sigma * jnp.tile(sr, F)).reshape(F, Ktot),
-        octave=jnp.broadcast_to(jnp.asarray(octv_row), (F, Ktot)),
-        num_ori=oris.num_ori.reshape(F, Ktot),
-        valid=gvalid.reshape(F, Ktot),
-        ori=oris.ori.reshape(F, Ktot, -1),
-        ori_valid=oris.ori_valid.reshape(F, Ktot, -1),
-        desc=desc.reshape(F, Jtot, 128),
-        desc_kp=jnp.concatenate(job_kps, axis=1),
-        desc_valid=desc_valid,
-        n_keypoints=jnp.sum(gvalid.reshape(F, Ktot), axis=1,
-                            dtype=jnp.int32),
-        n_descriptors=jnp.sum(desc_valid, axis=1, dtype=jnp.int32),
-        octave_candidates=jnp.stack([c.n_found for c in cands], axis=1),
-        octave_dropped=jnp.stack([c.n_dropped for c in cands], axis=1),
-    )
+                  desc_chunk: int = 1024) -> SiftFeatures:
+    """Frame-batched extraction: the per-frame :func:`extract` body
+    vectorized over a leading [F] frame axis, so one XLA program
+    computes F frames and every output gains that axis. The reference
+    gets cross-frame parallelism from multiple SiftJobs on CUDA streams
+    (popsift.cpp:182-213)."""
+    return jax.vmap(lambda im: extract(im, plan,
+                                       desc_chunk=desc_chunk))(imgs_u8)
 
 
 def make_extract_fn(plan: ExtractPlan, desc_chunk: int = 1024):

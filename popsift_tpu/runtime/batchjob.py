@@ -1,7 +1,7 @@
 """Restartable batch extraction jobs.
 
 The reference processes one image at a time and exits on any failure
-(debug_macros.cu:36-45); a production TPU deployment runs hours-long
+(debug_macros.cu:36-45); a production deployment runs hours-long
 extraction sweeps where a crash must not lose completed work. This
 runner gives extraction the same elastic story the SfM engine has
 (sfm/checkpoint.py):
@@ -14,7 +14,7 @@ runner gives extraction the same elastic story the SfM engine has
   manifest, so a killed job resumes where it stopped.
 
 Decoding runs through the native host pipeline when available
-(runtime/native.py worker threads overlap decode with TPU compute, the
+(runtime/native.py worker threads overlap decode with device compute, the
 stage-1 upload thread analog, popsift.cpp:171-180).
 """
 

@@ -5,7 +5,7 @@ Exposes:
 * :func:`decode_pnm` / :func:`write_pgm` — fast C++ PNM codec with the
   reference's integer RGB->gray semantics (pgmread.cpp:17-33).
 * :class:`HostPipeline` — worker-thread decode/staging pipeline with a
-  bounded queue and future-style jobs: the TPU-native equivalent of the
+  bounded queue and future-style jobs: the equivalent of the
   reference's stage-1 upload thread + image pool
   (popsift.cpp:171-180, 19-28).
 

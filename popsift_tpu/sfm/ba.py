@@ -200,18 +200,18 @@ def _precond(ops: _SchurOps, r):
 def schur_dense_step(p: BAProblem, lam, psum_axis=None, huber_delta=None,
                      opt_intr: bool = False, intr_mask=None):
     """One damped Gauss-Newton step via an EXPLICIT dense reduced camera
-    system — the MXU formulation of the Schur complement.
+    system — the matmul formulation of the Schur complement.
 
     The matrix-free CG step (:func:`schur_cg_step`) spends ~all its time
     in per-CG-iteration gathers/segment-sums over the observation list
-    (scatter-bound on TPU: 3 segment sums + 2 row gathers per iteration).
+    (3 segment sums + 2 row gathers per iteration).
     Here the per-observation work happens ONCE: the camera-point coupling
     blocks are aggregated into a dense U [Np, Nc, 6, 3] with a single
     combined-index segment sum, and the Schur correction
 
         B = U Hpp^-1 U^T            (a (6Nc, 3Np) x (3Np, 6Nc) matmul)
 
-    runs on the MXU. The reduced system S = Hcc + lam I - B (6Nc x 6Nc)
+    is one matmul. The reduced system S = Hcc + lam I - B (6Nc x 6Nc)
     is then solved directly — symmetric Jacobi scaling followed by an LU
     solve (``jnp.linalg.solve``); exact, no CG tolerance. (LU rather
     than Cholesky: S is PSD only up to f32 roundoff, see below.)
@@ -261,7 +261,7 @@ def schur_dense_step(p: BAProblem, lam, psum_axis=None, huber_delta=None,
     U = U.reshape(Np, Nc, 6, 3)
 
     A = jnp.einsum("pcik,pkl->pcil", U, Hpp_inv)        # U Hpp^-1
-    # B[(c,i),(d,j)] = sum_{p,k} A[p,c,i,k] U[p,d,j,k] as one MXU matmul
+    # B[(c,i),(d,j)] = sum_{p,k} A[p,c,i,k] U[p,d,j,k] as one matmul
     A2 = jnp.transpose(A, (1, 2, 0, 3)).reshape(Nc * 6, Np * 3)
     U2 = jnp.transpose(U, (1, 2, 0, 3)).reshape(Nc * 6, Np * 3)
     B = jax.lax.dot_general(
@@ -461,7 +461,7 @@ def bundle_adjust(p: BAProblem, iters: int = 10, cg_iters: int = 25,
     """Levenberg-Marquardt loop (jitted, fixed iteration count).
 
     Accept/reject with damping update: classic LM without host sync.
-    ``dense`` selects the MXU dense-Schur direct solve
+    ``dense`` selects the dense-Schur direct solve
     (:func:`schur_dense_step`) over matrix-free CG; by default it is on
     whenever the dense coupling matrix fits memory. ``huber_delta``
     switches the objective to the Huber loss on the per-observation

@@ -12,7 +12,7 @@ Sharding layout (landmark-parallel):
 * camera parameters are replicated; every camera-side reduction
   (Hcc v, g_c, the Schur correction sum over points) becomes a
   ``psum`` over the mesh axis — these are the Schur-complement
-  reductions riding ICI.
+  reductions as collectives.
 * the CG loop therefore runs identically on every device on the
   replicated [Nc, 6] camera system; point back-substitution is local.
 

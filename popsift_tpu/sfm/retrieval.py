@@ -4,9 +4,9 @@ At SfM scale, exhaustive pairwise matching is O(N^2) full descriptor
 matmuls (the reference's only matching mode, features.cu:197-219, run
 per pair). Standard pipelines (COLMAP vocab-tree, 1DSfM) first shortlist
 likely-overlapping pairs by a cheap global image signature. This module
-is the TPU-shaped version: Lloyd's k-means over a descriptor sample and
+is the batched version: Lloyd's k-means over a descriptor sample and
 VLAD residual aggregation are both expressed as dense matmuls
-(assignment = argmin of a [N, K] distance matrix on the MXU; the
+(assignment = argmin of a [N, K] distance matrix; the
 aggregation is a one-hot [K, N] x [N, 128] matmul), and the shortlist
 is one [N_img, N_img] signature-similarity matmul + top_k — no trees,
 no hashing, no host loops.

@@ -8,7 +8,29 @@ for planning shardings.
 
 from __future__ import annotations
 
+import os
+
 import jax
+
+# fixed cache location when JAX_COMPILATION_CACHE_DIR is unset: the
+# checkout root, found from this file (popsift_tpu/utils/device.py)
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its path.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here; otherwise the cache is ``<checkout>/.jax_cache``
+    (a fixed path, since the path is part of the cache key).
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    return CACHE_DIR
 
 
 def device_report(verbose: bool = True) -> list:
@@ -48,8 +70,8 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize the multi-host JAX runtime (jax.distributed).
 
-    On TPU pods all arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU multi-process runs. Idempotent.
+    Pass all three arguments for CPU/GPU multi-process runs (nothing
+    detects a cluster on its own). Idempotent.
     """
     try:
         jax.distributed.initialize(

@@ -1,6 +1,6 @@
 """Tracing / profiling utilities.
 
-TPU-native counterpart of the reference's observability hooks:
+Counterpart of the reference's observability hooks:
 
 * NVTX ranges (compile-gated macros, /root/reference/src/popsift/
   popsift.h:22-27, sift_pyramid.cu:25-30) -> :func:`trace_scope`, which

@@ -1,16 +1,14 @@
 """Summarize an XProf .xplane.pb device trace (op-time distribution).
 
-Companion to capture_trace.py / capture_trace_batch.py: loads the
-serialized XSpace with jax.profiler.ProfileData and prints, per device
-plane, the total device-op time grouped by op category plus the top
-individual ops. Used to localize where the 1080p extraction ms/frame
-goes (round-4 stage-table work; the reference's analog is nvprof over
-the CUDA pipeline, e.g. popsift.cpp's --print-time-info counters).
+Companion to capture_trace.py: loads the serialized XSpace with
+jax.profiler.ProfileData and prints, per device plane, the total
+device-op time grouped by op category plus the top individual ops (the
+reference's analog is nvprof over the CUDA pipeline, e.g. popsift.cpp's
+--print-time-info counters).
 
-    python scripts/analyze_trace.py /tmp/xprof_r4 --frames 4
-    python scripts/analyze_trace.py /tmp/xprof_b8 --frames 8 --top 40
+    python scripts/analyze_trace.py <trace dir> --frames 4
 
-Runs fine on CPU (no TPU needed; parsing only).
+Parsing only: runs anywhere.
 """
 
 import argparse
@@ -33,9 +31,8 @@ def find_xplane(path):
 
 def categorize(name):
     n = name.lower()
-    if "custom-call" in n or re.search(
-            r"(blur_dog|extrema|orient_hist|desc_loop|compact|atan2)", n):
-        return "pallas/custom-call"
+    if "custom-call" in n or re.search(r"(sift_desc_loop|triton)", n):
+        return "kernel/custom-call"
     if n.startswith("fusion") or ".fusion" in n or "loop_fusion" in n:
         return "fusion"
     if "convolution" in n or "conv" in n:
@@ -70,7 +67,7 @@ def main():
         pd = ProfileData.from_serialized_xspace(fh.read())
 
     for plane in pd.planes:
-        if "/device:" not in plane.name and "TPU" not in plane.name:
+        if "/device:" not in plane.name:
             continue
         for line in plane.lines:
             if line.name not in ("XLA Ops", "XLA TraceMe"):

@@ -1,6 +1,6 @@
 """Roofline check for the SfM hot kernels: brute-force matching and the
-Schur-complement BA step (BASELINE.md: "BA / matching kernels
-speed-of-light per chip, MXU-bound matmuls, roofline-verified").
+Schur-complement BA step (BASELINE.json: "BA and matching kernels must
+hit speed-of-light per chip").
 
 Prints one JSON line per kernel with achieved TFLOP/s.
 
@@ -20,7 +20,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcc")
+    from popsift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
 
     from popsift_tpu.ops.matching import match_descriptors
     from popsift_tpu.sfm.ba import BAProblem, schur_cg_step
@@ -108,7 +109,7 @@ def main():
                 "asymptotic (matmul term drops 8x; use for larger R "
                 "or retrieval shortlists)"})
 
-    # --- int8-quantized matching: native MXU int8 rate ----------------
+    # --- int8-quantized matching: integer dot, exact int32 distances ---
     from popsift_tpu.ops.matching import match_descriptors_q8
     dl8 = jnp.abs(dl)
     dr8 = jnp.abs(dr)
@@ -159,7 +160,7 @@ def main():
         "note": "matrix-free CG: scatter/gather-bound (3 segment sums "
                 "+ 2 row gathers per CG iteration)"})
 
-    # --- BA: dense-Schur direct step (MXU formulation) ----------------
+    # --- BA: dense-Schur direct step (matmul formulation) -------------
     from popsift_tpu.sfm.ba import schur_dense_step
 
     dstep = jax.jit(lambda p: schur_dense_step(p, jnp.float32(1e-3))[2])
@@ -180,7 +181,7 @@ def main():
         "schur_mfu": (round(mm_flops / dtd / 1e12 / peak_tf, 3)
                       if peak_tf else None),
         "speedup_vs_cg": round(dt / dtd, 2),
-        "note": "explicit dense reduced system on the MXU + direct "
+        "note": "explicit dense reduced system as matmuls + direct "
                 "solve (exact step, no CG tolerance)"})
 
     # --- global SfM: rotation + translation averaging -----------------

@@ -1,6 +1,6 @@
 """Generate golden keypoint/descriptor fixtures from the NumPy oracle.
 
-The TPU analog of the reference's ``reference.tgz`` golden outputs
+The analog of the reference's ``reference.tgz`` golden outputs
 (testScripts/downloadOxfordDataset.sh.in:16-44): per (scene, config)
 case the *independent oracle* extracts features and we store the sorted
 keypoint set + descriptors in ``tests/golden/<case>.npz``. The committed
@@ -19,40 +19,11 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
+
+from popsift_tpu.eval.golden import golden_cases  # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "..", "tests",
                           "golden")
-
-
-def golden_cases():
-    from popsift_tpu.config import SiftConfig
-    from conftest import synthetic_image
-    return {
-        # default popsift mode, loop descriptors, RootSift
-        "scene64_default": (
-            synthetic_image(64, 80, seed=3),
-            SiftConfig(octaves=3), "loop"),
-        # vlfeat compatibility mode + classic L2 norm + igrid
-        "scene64_vlfeat_igrid": (
-            synthetic_image(64, 80, seed=3),
-            SiftConfig(octaves=3, sift_mode="vlfeat", desc_mode="igrid",
-                       norm_mode="classic"), "igrid"),
-        # larger textured scene, defaults
-        "scene120_default": (
-            synthetic_image(120, 160, seed=7),
-            SiftConfig(octaves=4), "loop"),
-        # true grid variant + fixed9 gauss pyramid
-        "scene64_grid_fixed9": (
-            synthetic_image(64, 80, seed=3),
-            SiftConfig(octaves=3, gauss_mode="fixed9", desc_mode="grid"),
-            "grid"),
-        # iloop descriptor variant + interpolated octave downscale
-        "scene64_iloop_interp": (
-            synthetic_image(64, 80, seed=3),
-            SiftConfig(octaves=3, desc_mode="iloop",
-                       downscale_mode="interpolate"), "iloop"),
-    }
 
 
 def flatten(feats):

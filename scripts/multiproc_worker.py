@@ -114,7 +114,7 @@ def main():
 
     # --- spatially-sharded extraction ACROSS processes -----------------
     # the halo-exchange ppermutes and feature all_gathers cross the
-    # process boundary here — the DCN analog of the ICI path the
+    # process boundary here — the multi-process analog of the single-process path the
     # virtual-mesh tests exercise
     from popsift_tpu.parallel.spatial import make_sharded_extract_fn
 

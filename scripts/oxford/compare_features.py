@@ -1,17 +1,17 @@
 """Compare two feature files in the reference text format.
 
-The formal >= 95% parity gate (BASELINE.md) needs outputs of the CUDA
+The formal >= 95% parity gate (BASELINE.json) needs outputs of the CUDA
 reference on the same images; this zero-egress environment cannot run
 it, so this tool makes the comparison a one-liner for anyone who can:
 
-    # on a GPU machine:      popsift-demo -i img.pgm -o ref.txt
-    # on the TPU deployment: popsift-demo -i img.pgm -o tpu.txt
-    python scripts/oxford/compare_features.py ref.txt tpu.txt
+    # the CUDA reference:    popsift-demo -i img.pgm -o ref.txt
+    # this framework:        python -m popsift_tpu.cli.demo -i img.pgm -o ours.txt
+    python scripts/oxford/compare_features.py ref.txt ours.txt
 
 Reports keypoint-set overlap at a pixel tolerance and per-matched-pair
 descriptor distances (the metric analog of the reference's sorted
-`cmp`, testOxfordDataset.sh.in:128-158 — bit-exactness is a GPU-only
-property; TPU float semantics differ).
+`cmp`, testOxfordDataset.sh.in:128-158 — bit-exactness holds only
+between identical kernels; XLA's float evaluation order differs).
 """
 
 import argparse

@@ -248,7 +248,7 @@ def main():
                          "combined report keyed by config name")
     ap.add_argument("--merge-into", default=None,
                     help="existing matrix JSON to extend (e.g. add a "
-                         "1080p leg measured separately on the TPU)")
+                         "1080p leg measured separately on the GPU)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 

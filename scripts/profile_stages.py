@@ -1,102 +1,139 @@
-"""Stage-by-stage timing of the extraction pipeline on the current device.
+"""Per-stage timing of 1080p extraction on the current device, and the
+descriptor A/B: the Triton kernel against the plain XLA form.
 
-Times each phase as its own jitted program (compile excluded) so we know
-where the frame budget goes before optimizing. Usage:
+Each stage runs as its own jitted program on the calibrated 1080p plan
+(bench.make_frame frame 0, ``SiftConfig(extrema_capacity=8192)``,
+``PopSift.calibrate``), warmed up first, timed on the host clock to
+``block_until_ready``; the median of ``--reps`` runs is reported (kernel
+and XLA runs interleaved). Stage programs cut the pipeline at octave
+boundaries, so their sum is an approximation of the fused frame.
 
-    python scripts/profile_stages.py [--height 1080 --width 1920]
+    python scripts/profile_stages.py [--reps 7] [--out stages.json]
+
+Prints one JSON object (and, with ``--out``, writes it with every run's
+time) with the device, the card's name and power limit when
+``nvidia-smi`` answers, and times in ms.
 """
 
 import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
 import time
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-def timeit(fn, *args, iters=10):
-    out = fn(*args)
-    jax.block_until_ready(out)
+
+def timed(fn, *args):
     t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    jax.block_until_ready(out)
-    return (time.perf_counter() - t0) / iters * 1000.0  # ms
+    jax.block_until_ready(fn(*args))
+    return (time.perf_counter() - t0) * 1e3
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--capacity", type=int, default=3072)
-    ap.add_argument("--desc-mode", default="loop")
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
+    sys.path.insert(0, ROOT)
+    from bench import make_frame
     from popsift_tpu.config import SiftConfig
-    from popsift_tpu.ops.descriptors import (
-        compute_descriptors, make_descriptor_jobs, normalize_descriptors)
+    from popsift_tpu.ops.descriptors import (compute_descriptors,
+                                             make_descriptor_jobs)
     from popsift_tpu.ops.extrema import detect_extrema
     from popsift_tpu.ops.orientation import assign_orientations
     from popsift_tpu.ops.pyramid import build_pyramid
-    from popsift_tpu.pipeline import build_extract_plan, make_extract_fn
+    from popsift_tpu.pipeline import calibrate_plan, extract
+    from popsift_tpu.utils.device import enable_compile_cache
 
-    import sys
-    sys.path.insert(0, ".")
-    from bench import make_frame
+    enable_compile_cache()
+    img = make_frame(1080, 1920, seed=0)
+    cfg = SiftConfig(extrema_capacity=8192)
+    plan = calibrate_plan(cfg, [img], 1080, 1920)
+    dims = plan.pyramid.dims
+    x = jax.device_put(img)
 
-    h, w = args.height, args.width
-    img = make_frame(h, w)
-    cfg = SiftConfig(extrema_capacity=args.capacity, desc_mode=args.desc_mode)
-    plan = build_extract_plan(cfg, h, w)
-    print(f"device={jax.devices()[0]}  dims={plan.pyramid.dims}")
-    print(f"ext_caps={plan.ext_caps}")
+    def detect(dogs):
+        return tuple(detect_extrema(d, cfg, plan.ext_caps[o], dims[o][1],
+                                    dims[o][0]) for o, d in enumerate(dogs))
 
-    # full pipeline
-    fn = make_extract_fn(plan)
-    t_all = timeit(fn, img)
-    print(f"full pipeline        {t_all:8.2f} ms  ({1000.0 / t_all:.2f} fps)")
-
-    # pyramid
-    pyr_fn = jax.jit(lambda x: build_pyramid(x, plan.pyramid))
-    t_pyr = timeit(pyr_fn, img)
-    print(f"pyramid              {t_pyr:8.2f} ms")
-    blurs, dogs = jax.block_until_ready(pyr_fn(img))
-
-    # extrema (all octaves)
-    def ext_fn(dogs):
-        return tuple(
-            detect_extrema(dog, cfg, plan.ext_caps[o], dim[1], dim[0])
-            for o, (dog, dim) in enumerate(zip(dogs, plan.pyramid.dims)))
-    ext_jit = jax.jit(ext_fn)
-    t_ext = timeit(ext_jit, dogs)
-    print(f"extrema              {t_ext:8.2f} ms")
-    exts = jax.block_until_ready(ext_jit(dogs))
-
-    # orientation (all octaves)
-    def ori_fn(blurs, exts):
+    def orient(blurs, exts):
         return tuple(assign_orientations(b, e, cfg)
                      for b, e in zip(blurs, exts))
-    ori_jit = jax.jit(ori_fn)
-    t_ori = timeit(ori_jit, blurs, exts)
-    print(f"orientation          {t_ori:8.2f} ms")
-    oris = jax.block_until_ready(ori_jit(blurs, exts))
 
-    # descriptor jobs + descriptors (all octaves)
-    def desc_fn(blurs, exts, oris):
-        outs = []
-        for o, (b, e, r) in enumerate(zip(blurs, exts, oris)):
-            jobs = make_descriptor_jobs(e, r, plan.job_caps[o])
-            raw = compute_descriptors(b, jobs, cfg)
-            outs.append(normalize_descriptors(raw, cfg))
-        return tuple(outs)
-    desc_jit = jax.jit(desc_fn)
-    t_desc = timeit(desc_jit, blurs, exts, oris)
-    print(f"descriptors          {t_desc:8.2f} ms")
+    def jobs_of(exts, oris):
+        return tuple(make_descriptor_jobs(e, r, plan.job_caps[o])
+                     for o, (e, r) in enumerate(zip(exts, oris)))
 
-    total = t_pyr + t_ext + t_ori + t_desc
-    print(f"sum of stages        {total:8.2f} ms")
-    n = sum(int(np.asarray(e.count)) for e in exts)
-    print(f"extrema found: {n}")
+    def descs(impl):
+        return jax.jit(lambda blurs, jobs: tuple(
+            compute_descriptors(b, j, cfg, impl=impl)
+            for b, j in zip(blurs, jobs)))
+
+    fns = {
+        "frame_kernel": jax.jit(lambda im: extract(im, plan,
+                                                   desc_impl="kernel")),
+        "frame_xla": jax.jit(lambda im: extract(im, plan, desc_impl="xla")),
+        "pyramid": jax.jit(lambda im: build_pyramid(im, plan.pyramid)),
+        "detect": jax.jit(detect),
+        "orientation": jax.jit(orient),
+        "desc_kernel": descs("kernel"),
+        "desc_xla": descs("xla"),
+    }
+    blurs, dogs = fns["pyramid"](x)
+    exts = fns["detect"](dogs)
+    oris = fns["orientation"](blurs, exts)
+    jobs = jax.jit(jobs_of)(exts, oris)
+    inputs = {"frame_kernel": (x,), "frame_xla": (x,), "pyramid": (x,),
+              "detect": (dogs,), "orientation": (blurs, exts),
+              "desc_kernel": (blurs, jobs), "desc_xla": (blurs, jobs)}
+
+    compile_s = {}
+    for k, f in fns.items():
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(*inputs[k]))
+        compile_s[k] = round(time.perf_counter() - t0, 2)
+    runs = {k: [] for k in fns}
+    for _ in range(args.reps):
+        for k, f in fns.items():
+            runs[k].append(timed(f, *inputs[k]))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+
+    fk = fns["frame_kernel"](x)
+    fx = fns["frame_xla"](x)
+    d = jax.devices()[0]
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except OSError:
+        card = None
+    res = {
+        "device": {"platform": d.platform, "kind": d.device_kind,
+                   "count": len(jax.devices())},
+        "card": card,
+        "octave_caps": list(plan.ext_caps),
+        "counts_kernel": [int(fk.n_keypoints), int(fk.n_descriptors)],
+        "counts_xla": [int(fx.n_keypoints), int(fx.n_descriptors)],
+        "valid_jobs": int(sum(np.asarray(j.valid).sum() for j in jobs)),
+        "job_capacity": int(sum(j.valid.shape[0] for j in jobs)),
+        "median_ms": med,
+        "runs_ms": runs,
+        "first_call_s": compile_s,
+        "orientation_share_of_frame": med["orientation"]
+        / med["frame_kernel"],
+    }
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(res, fh, indent=1)
+    print(json.dumps({k: res[k] for k in res if k != "runs_ms"}))
 
 
 if __name__ == "__main__":

@@ -16,9 +16,9 @@ import numpy as np
 sys.path.insert(0, ".")
 sys.path.insert(0, "tests")
 
-import jax  # noqa: E402
+from popsift_tpu.utils.device import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcc")
+enable_compile_cache()
 
 
 def main(n_cams=400, ba_every=50, register_batch=16, probe_every=50,

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from conftest import synthetic_image
+from popsift_tpu.utils.device import CACHE_DIR
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -76,7 +77,7 @@ job.run({frames!r}, on_frame=bomb)
 """
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jaxcc")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", CACHE_DIR)
     p = subprocess.run([sys.executable, "-c", driver], env=env,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 23, p.stderr[-2000:]

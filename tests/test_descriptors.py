@@ -181,9 +181,9 @@ def test_variant_cross_consistency(small_image):
 
 
 def test_segmented_jobs_match_per_octave():
-    """make_descriptor_jobs_segmented (round-5 one-sort glue batching)
-    must reproduce per-segment make_descriptor_jobs exactly, including
-    front-packing order, validity, counts and level offsets."""
+    """make_descriptor_jobs_segmented (one sort for all octaves) must
+    reproduce per-segment make_descriptor_jobs exactly, including
+    front-packing order, validity, counts and levels."""
     import jax.numpy as jnp
     from popsift_tpu.config import ORIENTATION_MAX_COUNT
     from popsift_tpu.ops.descriptors import (
@@ -207,8 +207,7 @@ def test_segmented_jobs_match_per_octave():
     segs = tuple((int(offs[i]), caps[i], jcaps[i]) for i in range(3))
     jobs, counts = make_descriptor_jobs_segmented(
         jnp.asarray(x), jnp.asarray(y), jnp.asarray(sig),
-        jnp.asarray(lev), jnp.asarray(ori), jnp.asarray(ov), segs,
-        level_offsets=(0, 6, 12))
+        jnp.asarray(lev), jnp.asarray(ori), jnp.asarray(ov), segs)
 
     joff = np.concatenate([[0], np.cumsum(jcaps)]).astype(int)
     for i in range(3):
@@ -235,7 +234,6 @@ def test_segmented_jobs_match_per_octave():
         assert np.array_equal(np.asarray(jobs.x[sl]), np.asarray(ref.x))
         assert np.array_equal(np.asarray(jobs.ang[sl]),
                               np.asarray(ref.ang))
-        assert np.array_equal(
-            np.asarray(jobs.level[sl]),
-            np.asarray(ref.level) + [0, 6, 12][i])
+        assert np.array_equal(np.asarray(jobs.level[sl]),
+                              np.asarray(ref.level))
         assert int(counts[i]) == int(ref.count)

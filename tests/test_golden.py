@@ -1,12 +1,12 @@
 """Golden-fixture regression gate.
 
-The TPU analog of the reference's bit-exact Oxford compare
-(testScripts/testOxfordDataset.sh.in:85-158): the committed
-``tests/golden/*.npz`` fixtures were generated by the independent NumPy
-oracle (scripts/make_golden.py); the jitted pipeline must reproduce the
-keypoint set within float tolerance and every descriptor within a tight
-band. Any semantic drift — thresholds, filters, refine math, descriptor
-weights — fails here even when keypoint *counts* happen to agree.
+The committed ``tests/golden/*.npz`` fixtures were generated by the
+independent NumPy oracle (scripts/make_golden.py); the jitted pipeline
+must reproduce the keypoint set within float tolerance and every
+descriptor within a tight band (popsift_tpu/eval/golden.py, shared with
+``chip_smoke.py``). Any semantic drift — thresholds, filters, refine
+math, descriptor weights — fails here even when keypoint *counts*
+happen to agree.
 """
 
 import os
@@ -15,56 +15,32 @@ import numpy as np
 import pytest
 
 from popsift_tpu.api import PopSift
+from popsift_tpu.eval.golden import flatten_host, golden_cases, golden_errors
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
-POS_TOL = 5e-3      # px, octave-scaled refine in f32 vs f64 oracle
-SIG_TOL = 1e-3
-ORI_TOL = 1e-3      # radians
-DESC_TOL = 6e-3     # normalized descriptor component
 
-
-def _load_cases():
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    from make_golden import golden_cases
-    return golden_cases()
-
-
-def _flatten_host(host):
-    feats = sorted(host.features(),
-                   key=lambda f: (round(f.x, 4), round(f.y, 4),
-                                  round(f.sigma, 4)))
-    x = np.array([f.x for f in feats], np.float32)
-    y = np.array([f.y for f in feats], np.float32)
-    sigma = np.array([f.sigma for f in feats], np.float32)
-    num_ori = np.array([f.num_ori for f in feats], np.int32)
-    ori = np.concatenate([np.asarray(f.orientations[:f.num_ori],
-                                     np.float32) for f in feats])
-    desc = np.concatenate([f.descriptors for f in feats])
-    return dict(x=x, y=y, sigma=sigma, num_ori=num_ori, ori=ori,
-                desc=desc)
-
-
-@pytest.mark.parametrize("case", sorted(_load_cases()))
+@pytest.mark.parametrize("case", sorted(golden_cases()))
 def test_golden(case):
     path = os.path.join(GOLDEN_DIR, f"{case}.npz")
     assert os.path.exists(path), \
         "golden fixtures missing; run scripts/make_golden.py"
     want = np.load(path)
-    img, cfg, _variant = _load_cases()[case]
+    img, cfg, _variant = golden_cases()[case]
 
     host = PopSift(cfg).enqueue(img).get()
-    got = _flatten_host(host)
+    fails, _ = golden_errors(flatten_host(host), want)
+    assert not fails, fails
 
-    assert len(got["x"]) == len(want["x"]), \
-        f"keypoint count {len(got['x'])} vs golden {len(want['x'])}"
-    assert np.max(np.abs(got["x"] - want["x"])) < POS_TOL
-    assert np.max(np.abs(got["y"] - want["y"])) < POS_TOL
-    assert np.max(np.abs(got["sigma"] - want["sigma"])) < SIG_TOL
-    assert np.array_equal(got["num_ori"], want["num_ori"])
-    assert np.max(np.abs(got["ori"] - want["ori"])) < ORI_TOL
-    assert got["desc"].shape == want["desc"].shape
-    derr = np.max(np.abs(got["desc"] - want["desc"]))
-    assert derr < DESC_TOL, f"descriptor drift {derr}"
+
+def test_golden_errors_catch_drift():
+    """The shared comparison flags a perturbed descriptor and a count
+    mismatch, and passes an exact copy."""
+    want = dict(np.load(os.path.join(GOLDEN_DIR, "scene64_default.npz")))
+    assert golden_errors(want, want)[0] == []
+    bad = dict(want, desc=want["desc"].copy())
+    bad["desc"][3, 17] += 0.01
+    assert any("desc" in f for f in golden_errors(bad, want)[0])
+    short = {k: v[1:] if k in ("x", "y", "sigma", "num_ori") else v
+             for k, v in want.items()}
+    assert "count" in golden_errors(short, want)[0][0]

@@ -1,4 +1,4 @@
-"""Descriptor matching tests: tiled MXU matcher vs brute-force, ratio
+"""Descriptor matching tests: tiled matmul matcher vs brute-force, ratio
 test semantics, and an end-to-end self-match."""
 
 import jax
@@ -151,7 +151,7 @@ def test_pruned_matcher_recall_on_sift_like_sets():
 
 def test_matcher_agrees_with_cv2_bfmatcher():
     """External validation of the matcher in isolation: on identical
-    descriptor sets, the tiled MXU matcher must reproduce OpenCV's
+    descriptor sets, the tiled matmul matcher must reproduce OpenCV's
     BFMatcher(L2) kNN best/second-best and the squared-L2 ratio-0.8
     accept rule (features.cu:223). Complements the end-to-end cv2
     pipeline gate (tests/test_cv2_parity.py)."""

@@ -14,6 +14,7 @@ import subprocess
 import sys
 
 import pytest
+from popsift_tpu.utils.device import CACHE_DIR
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 WORKER = os.path.join(ROOT, "scripts", "multiproc_worker.py")
@@ -35,7 +36,7 @@ def test_two_process_mesh():
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)         # worker sets its own device count
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jaxcc")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", CACHE_DIR)
     procs = [
         subprocess.Popen(
             [sys.executable, WORKER, coordinator, str(nprocs), str(pid)],

@@ -149,8 +149,8 @@ def test_matching_mode_get_returns_dev(small_image):
 
 
 def test_extract_batch_fallback_parity(small_image):
-    """extract_batch on a non-TPU backend falls back to vmap(extract)
-    and must match per-frame single extraction exactly."""
+    """extract_batch (the per-frame body vmapped over frames) must match
+    per-frame single extraction exactly."""
     import jax
     import jax.numpy as jnp
     from popsift_tpu.config import SiftConfig
@@ -168,4 +168,30 @@ def test_extract_batch_fallback_parity(small_image):
         assert int(out.n_keypoints[i]) == int(ref.n_keypoints)
         assert int(out.n_descriptors[i]) == int(ref.n_descriptors)
         np.testing.assert_allclose(np.asarray(out.desc[i]),
+                                   np.asarray(ref.desc), rtol=1e-6)
+
+
+@pytest.mark.parametrize("F", [1, 3])
+def test_extract_batch_matches_extract(small_image, F):
+    """Batch sizes beside test_extract_batch_fallback_parity's F=2."""
+    import jax
+    import jax.numpy as jnp
+    from popsift_tpu.config import SiftConfig
+    from popsift_tpu.pipeline import (build_extract_plan, extract,
+                                      extract_batch)
+
+    h, w = small_image.shape
+    plan = build_extract_plan(SiftConfig(octaves=3, extrema_capacity=128),
+                              h, w)
+    imgs = jnp.asarray(np.stack([np.roll(small_image, 7 * f, axis=1)
+                                 for f in range(F)]))
+    out = jax.jit(lambda x: extract_batch(x, plan))(imgs)
+    single = jax.jit(lambda x: extract(x, plan))
+    for f in range(F):
+        ref = single(imgs[f])
+        for k in ("n_keypoints", "n_descriptors"):
+            assert int(getattr(out, k)[f]) == int(getattr(ref, k))
+        np.testing.assert_allclose(np.asarray(out.x[f]),
+                                   np.asarray(ref.x), rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(out.desc[f]),
                                    np.asarray(ref.desc), rtol=1e-6)

@@ -1,6 +1,7 @@
 """JAX pyramid vs NumPy oracle golden tests."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from popsift_tpu.config import SiftConfig
@@ -66,3 +67,51 @@ def test_pyramid_strategy_branches(small_image):
             # direct scaling is a documented accuracy trade-off in the
             # reference; divergence grows with octave
             assert d.mean() < 3.0 + 1.5 * o, (kw, o, d.mean())
+
+
+def test_interleave2x2(rng):
+    from popsift_tpu.ops.pyramid import _interleave2x2
+    H, W = 64, 128
+    planes = [jnp.asarray(rng.normal(size=(H, W)).astype(np.float32))
+              for _ in range(4)]
+    out = np.asarray(_interleave2x2(((planes[0], planes[1]),
+                                     (planes[2], planes[3]))))
+    p00, p01, p10, p11 = [np.asarray(p) for p in planes]
+    np.testing.assert_array_equal(out[0::2, 0::2], p00)
+    np.testing.assert_array_equal(out[0::2, 1::2], p01)
+    np.testing.assert_array_equal(out[1::2, 0::2], p10)
+    np.testing.assert_array_equal(out[1::2, 1::2], p11)
+
+
+def test_polyphase_lvl0_matches_gather_path(rng):
+    """The polyphase 2x-upscale path must reproduce the generic
+    resample+conv path to f32 tolerance."""
+    from popsift_tpu.config import SiftConfig
+    from popsift_tpu.ops.pyramid import build_pyramid_plan, _octave0_level0
+    import dataclasses
+    cfg = SiftConfig()
+    h, w = 37, 53
+    plan = build_pyramid_plan(cfg, h, w)
+    img = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+    fast = np.asarray(_octave0_level0(jnp.asarray(img), plan))
+    # force the generic path by lying about the shift (still 1.0 value,
+    # so compare against a plan whose dims break the structural test)
+    slow_plan = dataclasses.replace(plan, shift0=plan.shift0 + 0.0)
+    object.__setattr__  # noqa: B018
+    # build the generic result by calling the internals directly
+    from popsift_tpu.ops.pyramid import _lerp_rows, _conv1d_valid
+    oh, ow = plan.dims[0]
+    kx = plan.lvl0_kernel_x
+    pad = (kx.shape[0] - 1) // 2
+    x = jnp.asarray(img).astype(jnp.float32) / 255.0
+    ys = (np.arange(oh, dtype=np.float64) + plan.shift0) * (h / oh) - 0.5
+    xs = (np.arange(-pad, ow + pad, dtype=np.float64)
+          + plan.shift0) * (w / ow) - 0.5
+    r = _lerp_rows(x, ys)
+    r = _lerp_rows(r.T, xs).T
+    out = _conv1d_valid(r, kx, axis=1) * 255.0
+    ky = plan.lvl0_kernel_y
+    pady = (ky.shape[0] - 1) // 2
+    out = jnp.pad(out, ((pady, pady), (0, 0)), mode="edge")
+    slow = np.asarray(_conv1d_valid(out, ky, axis=0))
+    np.testing.assert_allclose(fast, slow, atol=2e-3)

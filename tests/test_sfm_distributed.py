@@ -58,7 +58,7 @@ def test_distributed_ba_matches_single_device():
 
 
 def test_dense_schur_matches_cg():
-    """The MXU dense-Schur direct step must agree with matrix-free CG at
+    """The dense-Schur direct step must agree with matrix-free CG at
     the LM level, and the distributed dense path (one psum'd [6Nc,6Nc]
     per step) must match the single-device dense path."""
     import jax.numpy as jnp
@@ -179,7 +179,7 @@ def test_distributed_rotation_translation_averaging():
     its edge shard, one psum per round forms the global system."""
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     from popsift_tpu.sfm.global_sfm import (rotation_averaging,
                                             translation_averaging)

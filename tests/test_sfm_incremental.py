@@ -12,6 +12,7 @@ from popsift_tpu.sfm.incremental import IncrementalSfM
 from popsift_tpu.sfm.pnp import ransac_pnp
 from popsift_tpu.sfm.rotation import exp_so3
 from popsift_tpu.sfm.tracks import Tracks, build_tracks
+from popsift_tpu.utils.device import CACHE_DIR
 
 INTR = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
 
@@ -149,7 +150,7 @@ os._exit(17)    # simulated crash mid-run: no cleanup, no final BA
 """
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jaxcc")
+    env.setdefault("JAX_COMPILATION_CACHE_DIR", CACHE_DIR)
     p = subprocess.run([sys.executable, "-c", driver], env=env,
                        capture_output=True, text=True, timeout=600)
     assert p.returncode == 17, p.stderr[-3000:]

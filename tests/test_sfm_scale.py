@@ -1,6 +1,6 @@
 """SfM at scale: end-to-end incremental reconstruction of a 40-camera
 synthetic sequence with a distributed final BA on the 8-device mesh
-(VERDICT round-2 item 8). Asserts the ATE bound from BASELINE.md and
+(VERDICT round-2 item 8). Asserts the ATE bound from BASELINE.json and
 cost parity between single-device and distributed BA.
 """
 
@@ -96,7 +96,7 @@ def test_sequence_reconstruction_scale():
                       for i in reg])
     C_gt = np.stack([-(cams[i][0].T @ cams[i][1]) for i in reg])
     rmse = ate_rmse(C_est, C_gt)
-    # BASELINE.md target: ATE within bound on benchmark sequences;
+    # BASELINE.json target: ATE within bound on benchmark sequences;
     # camera path spans ~10 units -> bound 1% of trajectory extent
     assert rmse < 0.1, f"ATE {rmse}"
 

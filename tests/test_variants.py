@@ -105,7 +105,7 @@ def test_api_accepts_float_image(small_image):
 
 def test_vlfeat_relative_end_to_end(small_image):
     """vlfeat-relative (hw-interpolated tables) differs only by filter
-    span on TPU (no texture unit); the mode must run end-to-end and
+    span here (no texture unit); the mode must run end-to-end and
     produce a similar keypoint set to plain vlfeat."""
     cfg = SiftConfig(octaves=3, extrema_capacity=256,
                      gauss_mode="vlfeat-relative")
